@@ -3,9 +3,9 @@ the paper's Table-6 envs, port of ``repro/launch/train.py``.
 
 Instances are data-parallel copies that each train on ``num_env / n_inst``
 envs; after every iteration their params are averaged (equivalent to
-averaged gradients for identical optimizer states).  With ``--fused`` (the
-default) the env steps on the env megakernel and PPO runs the fused GAE and
-acting-trunk kernels.
+averaged gradients for identical optimizer states).  The env steps on the
+env megakernel and PPO runs the fused GAE and acting-trunk kernels; on
+``--device cpu`` those run their plain PyTorch versions.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --workload drl \
@@ -23,9 +23,8 @@ def run_drl(args):
     from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
     from repro_torch.utils import tree_map
 
-    env = make_env(args.env, megakernel=args.fused, device=args.device)
-    cfg = PPOConfig(num_steps=args.rollout, lr=3e-4,
-                    use_fused_kernels=args.fused)
+    env = make_env(args.env, megakernel=True, device=args.device)
+    cfg = PPOConfig(num_steps=args.rollout, lr=3e-4, use_fused_kernels=True)
     n_inst = args.num_gpus * args.gmi_per_gpu
     states = []
     for i in range(n_inst):
@@ -69,10 +68,6 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="env megakernel + fused GAE and acting-trunk "
-                         "kernels (plain PyTorch on --device cpu)")
     run_drl(ap.parse_args(argv))
 
 
