@@ -57,6 +57,24 @@ def env_like(name: str, mc, megakernel: bool = False,
     return build_env(SPECS[name], mega_consts(mc, device), megakernel)
 
 
+def experience(exp, device="cpu"):
+    """A reference ``Experience`` as the port's, ``actor_version`` as a
+    0-d int32 tensor."""
+    from repro_torch.rl.a3c import Experience
+    f = {k: _tensor(getattr(exp, k), device) for k in Experience._fields}
+    f["actor_version"] = f["actor_version"].to(torch.int32)
+    return Experience(**f)
+
+
+def rings(bufs, device="cpu"):
+    """Reference ring buffers (a dict keyed by channel) as the port's;
+    ``actor_version`` int32."""
+    out = {k: _tensor(v, device) for k, v in bufs.items()}
+    if "actor_version" in out:
+        out["actor_version"] = out["actor_version"].to(torch.int32)
+    return out
+
+
 def to_numpy(obj):
     """Tensors (in any nest of dicts, lists, tuples and named tuples) to
     numpy arrays, keeping the structure."""

@@ -1,8 +1,12 @@
-"""Binding of the CUDA fused GAE kernel (``csrc/gae_scan.cu``).
+"""Bindings of the CUDA kernels in ``csrc/gae_scan.cu``.
 
-Replaces ``repro/kernels/gae_scan.py::gae_scan``: reverse GAE scan over T,
-``returns = adv + v``, then mean/std normalisation of the advantages over
-all T*N elements.  Call it through ``ops.gae_norm``.
+:func:`launch` replaces ``repro/kernels/gae_scan.py::gae_scan``: reverse
+GAE scan over T, ``returns = adv + v``, then mean/std normalisation of the
+advantages over all T*N elements.  Call it through ``ops.gae_norm``.
+
+:func:`launch_nstep` replaces ``gae_scan.py::nstep_scan``, the A3C reverse
+scan ``G_t = r_t + gamma * G_{t+1} * (1 - d_t)`` from the bootstrap value.
+Call it through ``ops.nstep_returns``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ def _lib():
     lib.gae_scan_launch.restype = _I
     lib.gae_scan_scratch.argtypes = [_I]
     lib.gae_scan_scratch.restype = _I
+    lib.nstep_scan_launch.argtypes = [_P] * 4 + [_I, _I, _F, _P]
+    lib.nstep_scan_launch.restype = _I
     return lib
 
 
@@ -44,3 +50,22 @@ def launch(rewards, values, dones, last_value, *, gamma, lam, eps):
     if err != 0:
         raise RuntimeError(f"gae_norm kernel launch failed: CUDA error {err}")
     return adv, ret
+
+
+def launch_nstep(rewards, dones, bootstrap, *, gamma):
+    T, N = rewards.shape
+    for x, shape, nm in ((rewards, (T, N), "rewards"),
+                         (dones, (T, N), "dones"),
+                         (bootstrap, (N,), "bootstrap")):
+        _build.check_tensor("nstep_returns", nm, x, shape)
+    lib = _lib()
+    dev = rewards.device
+    ret = torch.empty((T, N), dtype=torch.float32, device=dev)
+    err = lib.nstep_scan_launch(
+        rewards.data_ptr(), dones.data_ptr(), bootstrap.data_ptr(),
+        ret.data_ptr(), T, N, gamma,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nstep_returns kernel launch failed: CUDA error "
+                           f"{err}")
+    return ret

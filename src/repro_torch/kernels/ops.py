@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"env_mega_step": 0, "gae_norm": 0, "policy_mlp": 0}
+LAUNCHES = {"env_mega_step": 0, "gae_norm": 0, "policy_mlp": 0,
+            "nstep_returns": 0, "pack_channels": 0}
 
 
 def reset_launches():
@@ -76,4 +77,29 @@ def policy_mlp(x, weights, biases):
     from repro_torch.kernels import fused_policy_mlp
     out = fused_policy_mlp.launch(x, weights, biases)
     LAUNCHES["policy_mlp"] += 1
+    return out
+
+
+def nstep_returns(rewards, dones, bootstrap, *, gamma=0.99):
+    """A3C n-step discounted returns: the reverse scan
+    ``G_t = r_t + gamma * G_{t+1} * (1 - d_t)`` from ``bootstrap``.
+    rewards/dones: (T, N); bootstrap: (N,).  Returns (T, N) float32."""
+    if _on_cpu(rewards, "nstep_returns"):
+        return ref.nstep_returns_ref(rewards, dones, bootstrap, gamma)
+    from repro_torch.kernels import gae_scan
+    out = gae_scan.launch_nstep(rewards, dones, bootstrap, gamma=gamma)
+    LAUNCHES["nstep_returns"] += 1
+    return out
+
+
+def pack_channels(bufs, payloads, slot: int):
+    """Write one push into ring slot ``slot`` in place (all six channels
+    in one launch; the ``channel_pack`` layout).  ``bufs``/``payloads`` are
+    keyed by ``channel_pack.CHANNELS``; ``slot`` is a Python int.  Returns
+    ``bufs``."""
+    if _on_cpu(bufs["rewards"], "pack_channels"):
+        return ref.pack_channels_ref(bufs, payloads, slot)
+    from repro_torch.kernels import channel_pack
+    out = channel_pack.launch(bufs, payloads, slot)
+    LAUNCHES["pack_channels"] += 1
     return out

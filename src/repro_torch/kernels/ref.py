@@ -41,6 +41,35 @@ def gae_norm_ref(rewards, values, dones, last_value, gamma: float = 0.99,
     return advs, returns
 
 
+def nstep_returns_ref(rewards, dones, bootstrap, gamma: float = 0.99):
+    """Reverse discounted scan ``G_t = r_t + gamma * G_{t+1} * (1 - d_t)``
+    bootstrapped from the last value.  rewards/dones: (T, N); bootstrap:
+    (N,).  Returns (T, N) float32."""
+    r, d = rewards.float(), dones.float()
+    g = bootstrap.float()
+    rets = []
+    for t in reversed(range(r.shape[0])):
+        g = r[t] + gamma * g * (1.0 - d[t])
+        rets.append(g)
+    return torch.stack(rets[::-1])
+
+
+def pack_channels_ref(bufs, payloads, slot: int):
+    """Ring pack of one push, in place, in the ``channel_pack`` layout:
+    (T, N, ...) channels into columns ``[slot*N, (slot+1)*N)``, bootstrap
+    and actor_version into row ``slot``.  Other slots survive.  Returns
+    ``bufs``."""
+    N = payloads["rewards"].shape[1]
+    col = slot * N
+    for c in ("obs", "actions", "rewards", "dones"):
+        bufs[c][:, col:col + N] = payloads[c]
+    bufs["bootstrap"][slot] = payloads["bootstrap"].reshape(N)
+    v = payloads["actor_version"]
+    bufs["actor_version"][slot] = v.reshape(1) if isinstance(
+        v, torch.Tensor) else v
+    return bufs
+
+
 def write_ring(bufs, obs, action, reward, done_f, step_t: int, slot: int):
     """In-place ring-row write in the ``channel_pack`` slot layout: row
     ``step_t``, columns ``[slot*N, (slot+1)*N)``.  Other cells survive."""

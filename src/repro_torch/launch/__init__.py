@@ -1,2 +1,3 @@
-# Launch layer: train.py (the --workload drl CLI), profile.py (device-time
-# breakdown of one PPO iteration).
+# Launch layer: train.py (the --workload drl CLI), async_a3c.py (async A3C
+# over the MCC ring), profile.py (device-time breakdown of one PPO
+# iteration).

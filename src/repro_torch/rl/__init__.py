@@ -1,1 +1,1 @@
-from repro_torch.rl import ppo, rollout  # noqa: F401
+from repro_torch.rl import a3c, ppo, rollout  # noqa: F401

@@ -7,6 +7,12 @@ reference's ``lax.scan``.  With ``policy_fn=policy_apply_fused`` (what PPO
 passes when ``use_fused_kernels`` is set) the acting trunk runs on the
 fused kernel, and with ``VectorEnv(megakernel=True)`` the env step runs on
 the env megakernel.
+
+``collect_ring`` is its zero-copy producer sibling for megakernel envs:
+the same loop, but each step's env megakernel launch also writes the
+acted-on obs, raw action, reward and done straight into the caller's
+``ChannelRing`` slot buffers; no Trajectory is staged and nothing is
+re-packed by ``pack_channels``.
 """
 from __future__ import annotations
 
@@ -48,6 +54,40 @@ def collect(policy_params, env, env_state, obs, gen: torch.Generator,
     traj = Trajectory(*[torch.stack(x) for x in zip(*outs)])
     _, _, last_value = policy_fn(policy_params, obs)
     return traj, env_state, obs, last_value
+
+
+@torch.no_grad()
+def collect_ring(policy_params, env, env_state, obs, gen: torch.Generator,
+                 num_steps: int, bufs, slot: int,
+                 noise: Optional[torch.Tensor] = None):
+    """Zero-copy serving for ``VectorEnv(megakernel=True)``: per step the
+    policy acts, then ``ops.env_mega_step`` advances every env and writes
+    the experience row into ring slot ``slot`` of the ``{obs, actions,
+    rewards, dones}`` buffers ``bufs`` in place (the ``channel_pack``
+    layout).  The action noise is ``noise[t]`` when ``noise`` (T, N, act)
+    is given, else drawn from ``gen``.
+
+    Returns ``(bufs, env_state, last_obs, bootstrap)``, ``bootstrap`` being
+    the value of ``last_obs`` under ``policy_params``."""
+    if not getattr(env, "megakernel", False):
+        raise ValueError("collect_ring needs VectorEnv(megakernel=True); "
+                         "use collect for the plain step path")
+    from repro_torch.envs.base import EnvState
+    from repro_torch.kernels import ops
+    mc, sp = env.mega, env.spec
+    for t in range(num_steps):
+        mu, log_std, _ = policy_apply(policy_params, obs)
+        eps = noise[t] if noise is not None else torch.randn(
+            mu.shape, generator=gen, device=mu.device)
+        action = sample_action(mu, log_std, eps)
+        out = ops.env_mega_step(
+            *env_state, action, obs, bufs, t, slot, mc.sensor, mc.tgt,
+            mc.masses, mc.lengths, chain=mc.chain, task=mc.task,
+            substeps=sp.substeps, dt=sp.dt,
+            max_episode_len=sp.max_episode_len)
+        env_state, obs = EnvState(*out[:7]), out[7]
+    _, _, bootstrap = policy_apply(policy_params, obs)
+    return bufs, env_state, obs, bootstrap
 
 
 def gae(rewards, values, dones, last_value, gamma: float = 0.99,

@@ -17,8 +17,8 @@ from repro.kernels import ops as jops
 from repro.kernels.env_megakernel import mega_step_ring
 from repro_torch import interop
 from repro_torch.envs import SPECS
-from repro_torch.kernels import (_build, env_megakernel, fused_policy_mlp,
-                                 gae_scan, ops, ref)
+from repro_torch.kernels import (_build, channel_pack, env_megakernel,
+                                 fused_policy_mlp, gae_scan, ops, ref)
 
 RNG = np.random.default_rng(1)
 
@@ -172,8 +172,14 @@ def test_cpu_calls_never_build_and_count_nothing(monkeypatch):
     env = interop.env_like("Ant", jax_make_env("Ant").mega, megakernel=True)
     s, o = env.reset(torch.Generator().manual_seed(0), 4)
     env.step(s, torch.zeros((4, 8)))
-    assert ops.LAUNCHES == {"env_mega_step": 0, "gae_norm": 0,
-                            "policy_mlp": 0}
+    ops.nstep_returns(torch.ones((2, 3)), torch.zeros((2, 3)), torch.ones(3))
+    pay = {"obs": torch.ones((2, 3, 4)), "actions": torch.ones((2, 3, 1)),
+           "rewards": torch.ones((2, 3)), "dones": torch.zeros((2, 3)),
+           "bootstrap": torch.ones(3), "actor_version": 1}
+    ops.pack_channels(channel_pack.alloc_rings(pay, 2), pay, 1)
+    assert set(ops.LAUNCHES) == {"env_mega_step", "gae_norm", "policy_mlp",
+                                 "nstep_returns", "pack_channels"}
+    assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
     assert _build._libs == {}
 
 
@@ -207,5 +213,18 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
                               None, 0, 0, mc.sensor, mc.tgt, mc.masses,
                               mc.lengths, chain=mc.chain, task=mc.task,
                               substeps=4, dt=1 / 60, max_episode_len=1000)
-    assert ops.LAUNCHES == {"env_mega_step": 0, "gae_norm": 0,
-                            "policy_mlp": 0}
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.nstep_returns(meta, meta, torch.empty(3, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        gae_scan.launch_nstep(c, c, torch.zeros(3), gamma=0.99)
+    pay = {"obs": torch.zeros((2, 3, 4)), "actions": torch.zeros((2, 3, 1)),
+           "rewards": c, "dones": c, "bootstrap": torch.zeros(3),
+           "actor_version": 0}
+    rings = channel_pack.alloc_rings(pay, 2)
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.pack_channels({"rewards": meta}, pay, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        channel_pack.launch(rings, pay, 1)
+    with pytest.raises(ValueError, match="outside a ring"):
+        channel_pack.launch(rings, pay, 2)
+    assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
