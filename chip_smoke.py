@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's two paths: synchronous PPO and
-asynchronous A3C over the MCC experience ring.
+"""On-card smoke test of the PyTorch port's three paths: synchronous PPO,
+asynchronous A3C over the MCC experience ring, and the paged serving
+engine at internlm2-1.8b's full width.
 
     python3 chip_smoke.py
 
@@ -15,9 +16,14 @@ each asserting, in order:
    forced to reset; the env megakernel without and with ring writes; GAE
    and the n-step scan at T = 16, N = 16384; the trunk at 16384 x 211 ->
    256; the ring pack of one A3C push, T = 16, N = 8192, slot 1 of 2, the
-   other slot a sentinel, bit-exact) and at a ragged N (every Table-6 env
+   other slot a sentinel, bit-exact; paged decode attention in bf16 at
+   internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
+   128, 8-token pages, 1024 positions; flash attention in bf16 at the
+   prefill shapes of phase 8) and at ragged shapes (every Table-6 env
    and trunk width, GAE and the n-step scan at T = 5, the pack at
-   N = 999 with a version tensor);
+   N = 999 with a version tensor; both attention kernels in f32 at hd 64
+   with 16-token pages, unmapped pages, idle rows, a window and a
+   softcap);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
    permutations;
@@ -33,7 +39,21 @@ each asserting, in order:
    rounds on each branch (``megakernel=True`` produces into the ring,
    ``megakernel=False`` pushes through the ring pack), each with the
    launch counters set to 0 just before and read just after;
-7. time each kernel, its plain version and, where one PyTorch call
+7. check a small f32 serving engine (reduced internlm2-1.8b, both
+   kernels, chunked prefill, shared heads with copy-on-write) on the card
+   against the same engine on the CPU: identical greedy tokens;
+8. drive the serving path: a paged ``ServeEngine`` over
+   internlm2-1.8b at full width in bf16 (random weights from seed 0),
+   8 slots, ``max_seq`` 1024, ``chunk_prefill`` 256, serving four
+   512-token prompts sharing a 256-token head, three 128-token prompts
+   and one 896-token prompt, 64 greedy tokens each, with the launch
+   counters set to 0 just before and read just after; it asserts one
+   paged-decode launch per layer per decode step and one flash launch per
+   layer per whole-prompt prefill dispatch, prints prefill and decode
+   tok/s, and how many tokens of two requests match ``oracle_generate``
+   (bf16 GEMMs at B = 1 and B = 8 round differently, so this is printed,
+   not asserted);
+9. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events, and print one
    ``{"kernels": [...]}`` line.
 
@@ -59,11 +79,23 @@ T_MAIN = 16
 N_RAGGED = 1000
 N_A3C = 8192             # envs per serving GMI
 N_PACK_RAGGED = 999      # s*N*211 not a multiple of 4: unaligned runs
+# the serving path's kernel shapes: decode positions of the 8 slots near
+# the end of the phase-8 run (four 512 + 64, three 128 + 64, 896 + 64
+# tokens), and the whole-prompt prefill dispatch (B, S) it makes
+DECODE_POS = [574, 574, 574, 574, 190, 190, 190, 958]
+FLASH_SHAPES = [(3, 128), (4, 512)]
 A3C_ROUNDS = 3
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
+PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense, flop/s
+ARCH = "internlm2-1.8b"
+# bf16 attention kernels: each output element within one bf16 ulp of its
+# own magnitude (2^(e-7) for |o| in [2^e, 2^(e+1))), plus BF16_ATOL for
+# elements near 0 whose ulp is below the f32 sums' rounding; f32 ones 1e-4
+BF16_ATOL = 2.0 ** -14
 TOL = {"env_mega_step": 1e-4, "gae_norm": 1e-4, "policy_mlp": 1e-4,
-       "nstep_returns": 1e-5, "pack_channels": 0.0}
+       "nstep_returns": 1e-5, "pack_channels": 0.0,
+       "paged_attention": 1e-4, "flash_attention": 1e-4}
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
                       "src/repro/kernels/env_megakernel.py:179"),
@@ -75,6 +107,10 @@ KERNELS = {
                       "src/repro/kernels/gae_scan.py:98"),
     "pack_channels": ("src/repro_torch/csrc/channel_pack.cu",
                       "src/repro/kernels/channel_pack.py:103"),
+    "paged_attention": ("src/repro_torch/csrc/paged_decode.cu",
+                        "src/repro/kernels/paged_decode.py:77"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
 }
 
 
@@ -87,6 +123,16 @@ def card_line() -> str:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| over one bf16 ulp of ``want``'s own element
+    (plus ``BF16_ATOL``): at most 1 passes the bf16 check."""
+    w = want.float()
+    _, e = torch.frexp(w)                 # |w| = m 2^e, m in [0.5, 1)
+    ulp = torch.where(w != 0, torch.exp2((e - 8).float()),
+                      torch.zeros_like(w))
+    return float(((got.float() - w).abs() / (ulp + BF16_ATOL)).max())
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -367,9 +413,9 @@ def run_a3c(dev, megakernel: bool):
     elapsed = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     direct = 2 * T_MAIN * A3C_ROUNDS if megakernel else 0
-    want = {"env_mega_step": direct, "gae_norm": 0, "policy_mlp": 0,
-            "nstep_returns": A3C_ROUNDS,
-            "pack_channels": 0 if megakernel else 2 * A3C_ROUNDS}
+    want = {k: 0 for k in TOL}
+    want.update({"env_mega_step": direct, "nstep_returns": A3C_ROUNDS,
+                 "pack_channels": 0 if megakernel else 2 * A3C_ROUNDS})
     assert launches == want, (launches, want)
     samples = A3C_ROUNDS * 2 * T_MAIN * N_A3C
     assert runner.trained_samples == runner.predictions == samples, (
@@ -379,6 +425,254 @@ def run_a3c(dev, megakernel: bool):
         assert obs.shape == (N_A3C, SPECS[ENV].obs_dim)
         assert bool(obs.isfinite().all())
     return launches, round_s, elapsed, losses, samples
+
+
+# ---------------------------------------------------------- attention ----
+def paged_inputs(B, H, KH, hd, P, M, qpos, gen, dev, dtype, holes=0.0,
+                 unmapped=0.0):
+    """A page pool of B * M + 1 pages (page 0 trash) with random contents
+    everywhere, each row's virtual pages mapped to distinct physical pages
+    up to its position ``qpos[b]`` (none for an idle row at -1), a share
+    ``unmapped`` of them left unmapped and a share ``holes`` of mapped
+    slots empty.  Mapped virtual page v holds positions [v*P, (v+1)*P) or
+    -1, as the engine writes them."""
+    N = B * M + 1
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((N, P, KH, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((N, P, KH, hd), generator=gen, device=dev).to(dtype)
+    sp = torch.randint(-1, M * P, (N, P), generator=gen, device=dev,
+                       dtype=torch.int32)
+    sp[0] = -1
+    table = torch.full((B, M), -1, dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=gen, device=dev).to(torch.int32) + 1
+    pos = torch.tensor(qpos, dtype=torch.int32, device=dev)
+    for b, qp in enumerate(qpos):
+        if qp < 0:
+            continue
+        n = qp // P + 1
+        row = perm[b * M:b * M + n].clone()
+        drop = torch.rand((n,), generator=gen, device=dev) < unmapped
+        row[drop] = -1
+        table[b, :n] = row
+        for v in range(n):
+            if row[v] >= 0:
+                p = torch.arange(v * P, (v + 1) * P, dtype=torch.int32,
+                                 device=dev)
+                p[(p > qp) | (torch.rand((P,), generator=gen, device=dev)
+                              < holes)] = -1
+                sp[row[v]] = p
+    return q, kp, vp, sp, table, pos
+
+
+def check_paged(args, tol, **kw):
+    from repro_torch.kernels import ops, ref
+    got = ops.paged_attention(*args, **kw)
+    want = ref.paged_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == args[0].dtype and bool(got.isfinite().all())
+    idle = args[5] < 0
+    assert bool((got[idle] == 0).all()), "idle row not exactly 0"
+    return held(got, want, tol, "paged_attention")
+
+
+def held(got, want, tol, name):
+    """f32: max |got - want| <= tol; bf16: every element within one bf16
+    ulp of its own magnitude.  Returns (max_abs_err, ulps or None)."""
+    err = max_err(got, want)
+    if got.dtype == torch.float32:
+        assert err <= tol, (name, got.dtype, err, tol)
+        return err, None
+    ulps = bf16_ulps(got, want)
+    assert ulps <= 1.0, (name, got.dtype, err, f"{ulps:.3g} bf16 ulps")
+    return err, ulps
+
+
+def flash_inputs(B, S, H, KH, hd, gen, dev, dtype):
+    return tuple(torch.randn((B, S, h, hd), generator=gen, device=dev)
+                 .to(dtype) for h in (H, KH, KH))
+
+
+def check_flash(args, tol, **kw):
+    from repro_torch.kernels import ops, ref
+    got = ops.flash_attention(*args, **kw)
+    want = ref.attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == args[0].dtype and bool(got.isfinite().all())
+    return held(got, want, tol, "flash_attention")
+
+
+# ------------------------------------------------------------ serving ----
+def serve_stream(vocab, seed, head_len, n_long, long_len, n_short,
+                 short_len, huge_len, gen_tokens):
+    """The serving traffic: ``n_long`` prompts of ``long_len`` tokens that
+    share a ``head_len``-token head, ``n_short`` prompts of ``short_len``
+    and one of ``huge_len`` tokens, ``gen_tokens`` greedy tokens each."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, head_len)
+    longs = [Request(tokens=np.concatenate(
+        [head, rng.integers(0, vocab, long_len - head_len)]),
+        max_new_tokens=gen_tokens) for _ in range(n_long)]
+    shorts = [Request(tokens=rng.integers(0, vocab, short_len),
+                      max_new_tokens=gen_tokens) for _ in range(n_short)]
+    huge = Request(tokens=rng.integers(0, vocab, huge_len),
+                   max_new_tokens=gen_tokens)
+    return longs, shorts, huge
+
+
+def drive_engine(eng, longs, shorts, huge):
+    """Wave 1: the first long prompt, the short ones and the huge one;
+    once the first long prompt has finished its (chunked) prefill and
+    published its pages, wave 2: the other long prompts, which map the
+    shared head and prefill only their tails.  Then drain."""
+    done = []
+    for r in [longs[0], *shorts, huge]:
+        eng.submit(r)
+    while True:
+        done += eng.step()
+        st = [s for s in eng._slots if s is not None and s.req is longs[0]]
+        if not st or not st[0].prefilling:
+            break
+    for r in longs[1:]:
+        eng.submit(r)
+    return done + eng.run_until_idle()
+
+
+def check_small_engine(dev):
+    """A small f32 engine (reduced internlm2-1.8b: 2 layers, d = 256,
+    hd 64, G = 2) with both kernels, chunked prefill and a shared head that
+    ends inside a page (copy-on-write), on the card and on the CPU from the
+    same params: greedy tokens identical, page tables equal."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    cfg = get_reduced(ARCH)
+    params = T.init_model(0, cfg, "cpu")
+    toks, tables = {}, {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, params, max_slots=4, max_seq=96, device=d,
+                          chunk_prefill=16)
+        longs, shorts, huge = serve_stream(cfg.vocab_size, 1, 20, 3, 40, 2,
+                                           12, 70, 12)
+        ops.reset_launches()
+        done = drive_engine(eng, longs, shorts, huge)
+        assert len(done) == 6 and all(len(c.tokens) == 12 for c in done)
+        toks[str(d)] = sorted((len(c.request.tokens), c.tokens)
+                              for c in done)
+        tables[str(d)] = eng._table.copy()
+        launches = dict(ops.LAUNCHES)
+    assert toks["cpu"] == toks[str(dev)], "card and CPU tokens differ"
+    assert (tables["cpu"] == tables[str(dev)]).all()
+    assert launches["paged_attention"] > 0 and \
+        launches["flash_attention"] > 0, launches
+    return launches
+
+
+def run_serve(dev):
+    """internlm2-1.8b at full width in bf16, random weights from seed 0:
+    the phase-8 traffic through a paged ``ServeEngine``, with
+    the launch counters set to 0 just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, T.init_model(0, cfg, dev), max_slots=8,
+                      max_seq=1024, device=dev, chunk_prefill=256)
+    # warm-up: cuBLAS handles and bf16 GEMM heuristics, one small request
+    eng.serve([Request(tokens=list(range(1, 40)), max_new_tokens=3)])
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    longs, shorts, huge = serve_stream(cfg.vocab_size, 0, 256, 4, 512, 3,
+                                       128, 896, 64)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = drive_engine(eng, longs, shorts, huge)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    L = cfg.num_layers
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = L * tel.total_decode_steps
+    want["flash_attention"] = L * eng.prefill_dispatches
+    assert launches == want, (launches, want)
+    assert eng.prefill_dispatches >= 1 and tel.total_decode_steps >= 63
+    reqs = longs + shorts + [huge]
+    assert len(done) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == 64 for c in done)
+    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
+    # the shared head's full pages are published in the prefix index
+    assert eng.shared_head_pages(longs[1].tokens[:256]) == \
+        256 // eng.page_size
+    gen = tel.total_tokens - len(reqs)
+    stats = {
+        "setup_s": setup_s, "wall_s": wall,
+        "prompt_tokens": tel.total_prompt_tokens,
+        "generated_tokens": tel.total_tokens,
+        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
+        "decode_tok_s": gen / tel.total_decode_s,
+        "decode_steps": tel.total_decode_steps,
+        "decode_ms_per_step": 1e3 * tel.total_decode_s
+        / tel.total_decode_steps,
+        "prefill_dispatches": eng.prefill_dispatches,
+        "end_to_end_tok_s": tel.total_tokens / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    # oracle agreement (printed): a short and the long chunked request
+    by_rid = {c.rid: c.tokens for c in done}
+    agree = []
+    for r in (shorts[0], huge):
+        orc = eng.oracle_generate(r)
+        got = by_rid[r.rid]
+        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
+                 len(orc))
+        margin = None
+        if n < len(orc):
+            toks = torch.as_tensor(list(r.tokens) + orc[:n], device=dev)
+            lg = T.forward(eng.params, cfg, {"tokens": toks[None]})[0, -1]
+            top = torch.topk(lg.float(), 2).values
+            margin = float(top[0] - top[1])
+        agree.append({"prompt": len(r.tokens), "matching": n,
+                      "of": len(orc), "top2_margin_at_divergence": margin})
+    stats["oracle"] = agree
+    return launches, stats, eng
+
+
+def paged_bound(args):
+    """Bytes and operations of one paged decode call on these inputs:
+    q and out, the table and positions, and each row's mapped pages that
+    hold a visible key (k, v and slot positions of the page, read once);
+    ~4 * H * hd flops per visible key."""
+    q, kp, vp, sp, table, pos = args
+    B, H, hd = q.shape
+    N, P, KH, _ = kp.shape
+    sp, table, pos = sp.cpu(), table.cpu(), pos.cpu()
+    es = q.element_size()
+    bytes_ = 2 * B * H * hd * es + table.numel() * 4 + B * 4
+    keys = 0
+    for b in range(B):
+        qp = int(pos[b])
+        if qp < 0:
+            continue
+        for v in range(qp // P + 1):
+            pid = int(table[b, v])
+            if pid >= 0:
+                bytes_ += 2 * P * KH * hd * es + P * 4
+                sl = sp[pid]
+                keys += int(((sl >= 0) & (sl <= qp)).sum())
+    return bytes_, keys * 4 * H * hd
+
+
+def flash_bound(B, S, H, KH, hd, es):
+    # q, k, v read once, out written once; QK^T and PV over the causal
+    # pairs, 4 * hd flops each
+    pairs = B * H * S * (S + 1) // 2
+    return es * (2 * B * S * H * hd + 2 * B * S * KH * hd), 4 * hd * pairs
 
 
 # ------------------------------------------------------------- bounds ----
@@ -421,8 +715,8 @@ def pack_bound(T, N, obs_dim, act_dim):
     return 2 * (4 * (T * N * (obs_dim + act_dim + 2) + N) + 4), 0
 
 
-def bound_ms(bytes_, ops_):
-    tb, to = bytes_ / PEAK_BYTES * 1e3, ops_ / PEAK_F32 * 1e3
+def bound_ms(bytes_, ops_, peak_ops=PEAK_F32):
+    tb, to = bytes_ / PEAK_BYTES * 1e3, ops_ / peak_ops * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -464,9 +758,41 @@ def main() -> int:
         "nstep_returns": check_nstep(T_MAIN, N_MAIN, gen, dev),
         "pack_channels": check_pack(T_MAIN, N_A3C, spec, gen, dev, 3),
     }
+    bf = torch.bfloat16
+    from repro_torch.configs import get_config
+    fc = get_config(ARCH)
+    FH, FKH, FHD = fc.num_heads, fc.num_kv_heads, fc.resolved_head_dim
+    paged_main = paged_inputs(8, FH, FKH, FHD, 8, 128, DECODE_POS, gen, dev,
+                              bf)
+    ulps = {}
+    errs["paged_attention"], ulps["paged_attention"] = check_paged(
+        paged_main, 0.0)
+    flash = [check_flash(flash_inputs(b, sq, FH, FKH, FHD, gen, dev, bf),
+                         0.0) for b, sq in FLASH_SHAPES]
+    errs["flash_attention"] = max(e for e, _ in flash)
+    ulps["flash_attention"] = max(u for _, u in flash)
     for k, e in errs.items():
-        print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} "
-              f"(tol {TOL[k]:g})")
+        tol = f"tol {TOL[k]:g}" if k not in ulps else \
+            f"{ulps[k]:.3g} of one bf16 ulp of each element, tol 1"
+        print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} ({tol})")
+    f32 = torch.float32
+    for kw in (dict(), dict(window=37, softcap=5.0)):
+        a = paged_inputs(5, 8, 4, 64, 16, 9, [130, -1, 17, 0, 143], gen, dev,
+                         f32, holes=0.2, unmapped=0.25)
+        e1, _ = check_paged(a, TOL["paged_attention"], **kw)
+        e2, _ = check_flash(flash_inputs(2, 77, 8, 2, 64, gen, dev, f32),
+                         TOL["flash_attention"], causal=True, **kw)
+        e3, _ = check_flash(flash_inputs(1, 45, 4, 4, 128, gen, dev, f32),
+                         TOL["flash_attention"], causal=False, **kw)
+        a = paged_inputs(3, 8, 1, 128, 16, 9, [100, 5, -1], gen, dev, f32,
+                         holes=0.2, unmapped=0.25)
+        e4, _ = check_paged(a, TOL["paged_attention"], **kw)
+        print(f"[check] ragged f32 {kw or 'no window/softcap'}: "
+              f"paged_attention (page 16, unmapped pages, idle rows) hd 64 "
+              f"G 2 max_abs_err={e1:.3g}, hd 128 G 8 max_abs_err={e4:.3g}; "
+              f"flash_attention causal S=77 hd 64 G 4 max_abs_err={e2:.3g},"
+              f" bidirectional S=45 hd 128 G 1 max_abs_err={e3:.3g} (tol "
+              "1e-4)")
     for name, sp in SPECS.items():
         e1 = check_env(name, N_RAGGED, gen, dev, True)
         e2 = check_trunk(sp.policy_dims[:-1], N_RAGGED, gen, dev)
@@ -513,8 +839,9 @@ def main() -> int:
                        vals.values())), vals
     elapsed = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    want = {"env_mega_step": T_MAIN * iters, "policy_mlp": (T_MAIN + 1) * iters,
-            "gae_norm": iters, "nstep_returns": 0, "pack_channels": 0}
+    want = {k: 0 for k in TOL}
+    want.update({"env_mega_step": T_MAIN * iters,
+                 "policy_mlp": (T_MAIN + 1) * iters, "gae_norm": iters})
     assert launches == want, (launches, want)
     by_path = {"ppo": launches}
     params, _, env_state, obs = state[:4]
@@ -538,9 +865,25 @@ def main() -> int:
               f"steps/s (best round), trained == predicted == {samples:,}, "
               f"losses {[round(x, 4) for x in losses]}, staleness [0] a "
               f"round, launches {la}")
+
+    # 7. small serving engine against the CPU -------------------------------
+    la = check_small_engine(dev)
+    print(f"[parity] small f32 serving engine ({ARCH} reduced, both "
+          f"kernels, chunked prefill, shared head with copy-on-write) card "
+          f"vs CPU: greedy tokens and page tables identical, launches {la}")
+
+    # 8. the serving path ---------------------------------------------------
+    la, stats, eng = run_serve(dev)
+    by_path["serve"] = la
+    print(f"[serve] {ARCH} full width bf16, 8 slots, max_seq 1024, chunk "
+          f"256: launches {la}, stats {json.dumps(stats)}")
+    print(f"[serve] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
+          f"{stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows)")
+    del eng
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
-    # 7. timings ------------------------------------------------------------
+    # 9. timings ------------------------------------------------------------
     _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
     r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
     x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)
@@ -582,8 +925,21 @@ def main() -> int:
                           copies, pack_bound(T_MAIN, N_A3C, spec.obs_dim,
                                              spec.act_dim)),
     }
-    for name, (kern, plain, lib, (nbytes, nops)) in timings.items():
-        b_ms, b_by = bound_ms(nbytes, nops)
+    fb, fs = FLASH_SHAPES[0]
+    fq, fk, fv = flash_inputs(fb, fs, FH, FKH, FHD, gen, dev, bf)
+    ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings["paged_attention"] = (
+        lambda: ops.paged_attention(*paged_main),
+        lambda: ref.paged_attention_ref(*paged_main), None,
+        paged_bound(paged_main), PEAK_BF16)
+    timings["flash_attention"] = (
+        lambda: ops.flash_attention(fq, fk, fv),
+        lambda: ref.attention_ref(fq, fk, fv),
+        lambda: sdpa(*ft, is_causal=True, enable_gqa=True),
+        flash_bound(fb, fs, FH, FKH, FHD, 2), PEAK_BF16)
+    for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
+        b_ms, b_by = bound_ms(nbytes, nops, *peak)
         # plain, kernel, kernel, plain: report the mean of each pair
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))

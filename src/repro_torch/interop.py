@@ -75,6 +75,27 @@ def rings(bufs, device="cpu"):
     return out
 
 
+def model_params(tree, device="cpu", dtype=None):
+    """A model's params (the reference ``init_model`` tree as numpy) as the
+    port's dict of tensors, same keys and layout; float leaves cast to
+    ``dtype`` when given."""
+    def leaf(x):
+        t = _tensor(x, device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return tree_map(leaf, tree)
+
+
+def paged_cache(cache, device="cpu"):
+    """A reference ``PagedKVCache`` (or its stacked per-layer form) as the
+    port's, ``slot_pos`` int32."""
+    from repro_torch.models.attention import PagedKVCache
+    return PagedKVCache(k_pages=_tensor(cache.k_pages, device),
+                        v_pages=_tensor(cache.v_pages, device),
+                        slot_pos=_tensor(cache.slot_pos, device).to(
+                            torch.int32))
+
+
 def to_numpy(obj):
     """Tensors (in any nest of dicts, lists, tuples and named tuples) to
     numpy arrays, keeping the structure."""

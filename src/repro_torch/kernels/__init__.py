@@ -6,4 +6,6 @@
 #                         the A3C n-step return scan
 #   fused_policy_mlp.py — whole Table-6 policy trunk in one launch
 #   channel_pack.py     — MCC ring buffers and the one-launch ring pack
+#   paged_decode.py     — one-token GQA attention read through a page table
+#   flash_attention.py  — blocked online-softmax attention (prefill)
 from repro_torch.kernels import ops, ref  # noqa: F401

@@ -15,7 +15,8 @@ from __future__ import annotations
 from repro_torch.kernels import ref
 
 LAUNCHES = {"env_mega_step": 0, "gae_norm": 0, "policy_mlp": 0,
-            "nstep_returns": 0, "pack_channels": 0}
+            "nstep_returns": 0, "pack_channels": 0, "paged_attention": 0,
+            "flash_attention": 0}
 
 
 def reset_launches():
@@ -102,4 +103,38 @@ def pack_channels(bufs, payloads, slot: int):
     from repro_torch.kernels import channel_pack
     out = channel_pack.launch(bufs, payloads, slot)
     LAUNCHES["pack_channels"] += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, slot_pos, table, positions, *,
+                    window=None, softcap=None, scale=None):
+    """Paged gather-decode attention: one decode token per row read through
+    a per-row page table.  q: (B, H, hd); k/v pages: (N, page, KH, hd);
+    slot_pos: (N, page) int32; table: (B, M) int32 (-1 unmapped);
+    positions: (B,) int32 (negative = idle row, output 0).  ``window`` is
+    a Python int or None.  Returns (B, H, hd) in q's dtype."""
+    if _on_cpu(q, "paged_attention"):
+        return ref.paged_attention_ref(q, k_pages, v_pages, slot_pos, table,
+                                       positions, window=window,
+                                       softcap=softcap, scale=scale)
+    from repro_torch.kernels import paged_decode
+    out = paged_decode.launch(q, k_pages, v_pages, slot_pos, table,
+                              positions, window=window, softcap=softcap,
+                              scale=scale)
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """Blocked online-softmax attention with GQA and an index-based causal
+    / sliding-window mask (query i and key j at positions i and j).
+    q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd).  Returns (B, Sq, H, hd)."""
+    if _on_cpu(q, "flash_attention"):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
+    from repro_torch.kernels import flash_attention as fa
+    out = fa.launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -1,0 +1,66 @@
+"""Binding of the CUDA kernel in ``csrc/paged_decode.cu``.
+
+:func:`launch` replaces ``repro/kernels/paged_decode.py::
+paged_decode_attention``: one decode token per batch row attending over
+the keys and values its page table maps, GQA groups, softcap and a runtime
+sliding window; unmapped pages and empty page slots are masked, and a row
+with no visible key (an idle slot at position -1) gives 0.  Call it
+through ``ops.paged_attention``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BIG_WINDOW = 1 << 30
+
+
+def _lib():
+    lib = _build.load("paged_decode")
+    lib.paged_decode_launch.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]
+    lib.paged_decode_launch.restype = _I
+    return lib
+
+
+def launch(q, k_pages, v_pages, slot_pos, table, positions, *, window=None,
+           softcap=None, scale=None):
+    B, H, hd = q.shape
+    N, P, KH, _ = k_pages.shape
+    M = table.shape[1]
+    dt = q.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"paged_attention: dtype {dt} not supported")
+    for x, shape, nm, t in ((q, (B, H, hd), "q", dt),
+                            (k_pages, (N, P, KH, hd), "k_pages", dt),
+                            (v_pages, (N, P, KH, hd), "v_pages", dt),
+                            (slot_pos, (N, P), "slot_pos", torch.int32),
+                            (table, (B, M), "table", torch.int32),
+                            (positions, (B,), "positions", torch.int32)):
+        _build.check_tensor("paged_attention", nm, x, shape, t)
+    vec = 16 // q.element_size()
+    if H % KH or H // KH not in (1, 2, 4, 8) or hd % vec \
+            or 32 % (hd // vec):
+        raise ValueError(f"paged_attention: H={H}, KH={KH}, hd={hd} not "
+                         "supported (H/KH in 1,2,4,8; hd a multiple of "
+                         f"{vec} with 32 % (hd/{vec}) == 0)")
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention: operands must be 16-byte aligned")
+    win = BIG_WINDOW if window is None else int(window)
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.paged_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        slot_pos.data_ptr(), table.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), B, H, KH, hd, P, M, win,
+        hd ** -0.5 if scale is None else float(scale),
+        0.0 if softcap is None else float(softcap), _DTYPES[dt],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    return out

@@ -192,3 +192,67 @@ def mega_step(q, qd, root, prev_action, t, seed, resets, action, obs, bufs,
         write_ring(bufs, obs, action, reward, done_f, step_t, slot)
     return (q, qd, root, pa, t, seed, resets, torch.tanh(raw @ sensor),
             reward, done_f, bufs)
+
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                  scale=None):
+    """Index-masked attention, the plain version of the flash kernel.
+    q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd) with H % KH == 0; query i and
+    key j sit at positions i and j.  Computes in f32, returns q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else hd ** -0.5
+    qf = (q.float() * scale).reshape(B, Sq, KH, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, slot_pos, table, positions, *,
+                        window=None, softcap=None, scale=None):
+    """Gather-decode attention, the plain version of the paged kernel.
+
+    q: (B, H, hd) one decode token per row; k/v pages: (N, page, KH, hd);
+    slot_pos: (N, page) absolute positions (-1 empty); table: (B, M)
+    physical page ids (-1 unmapped -> masked); positions: (B,) absolute q
+    position per row.  Gathers each row's pages into position order and
+    runs masked softmax attention in f32; invalid v rows are zeroed, so a
+    row whose keys are all masked gives exactly 0."""
+    B, H, hd = q.shape
+    N, page, KH, _ = k_pages.shape
+    M = table.shape[1]
+    G = H // KH
+    scale = scale if scale is not None else hd ** -0.5
+    tsafe = torch.clamp(table, min=0).long()
+    k = k_pages[tsafe].reshape(B, M * page, KH, hd).float()
+    v = v_pages[tsafe].reshape(B, M * page, KH, hd).float()
+    kpos = torch.where(torch.repeat_interleave(table >= 0, page, dim=1),
+                       slot_pos[tsafe].reshape(B, M * page), -1)
+    qf = (q.float() * scale).reshape(B, KH, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = positions[:, None]
+    valid = (kpos >= 0) & (kpos <= qpos)
+    if window is not None:
+        valid &= kpos > qpos - window
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p,
+                     torch.where(valid[:, :, None, None], v, 0.0))
+    return o.reshape(B, H, hd).to(q.dtype)

@@ -1,14 +1,21 @@
-"""Where the time of one PPO iteration goes on the card.
+"""Where the time goes on the card: one PPO iteration, or serving steps.
 
-Runs warm-up iterations of the main path (``make_env(env, megakernel=True)``
-+ ``PPOConfig(use_fused_kernels=True)``), then one iteration under
-``torch.profiler`` with CUDA activity, and prints the iteration's wall time,
-the device's busy and idle shares (idle = 1 - union of kernel intervals /
-wall time), device time by group (the three port kernels, cuBLAS GEMMs of
-the PPO update, everything else), and the top kernels by device time.
+``--workload ppo`` (default) runs warm-up iterations of the main path
+(``make_env(env, megakernel=True)`` + ``PPOConfig(use_fused_kernels=True)``),
+then one iteration under ``torch.profiler`` with CUDA activity.
+``--workload serve`` builds a paged ``ServeEngine`` over
+``--arch`` at full width (random weights), submits ``--batch`` prompts of
+``--prompt-len`` tokens, and profiles the first engine step (the batched
+whole-prompt prefill through the flash kernel, then one decode step) and,
+after two warm-up steps, one decode-only step.  Each report prints the
+wall time, the device's busy and idle shares (idle = 1 - union of kernel
+intervals / wall time), device time by group (the port kernels, cuBLAS
+GEMMs, everything else), and the top kernels by device time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --env ShadowHand \
         --num-env 16384 --rollout 16
+    PYTHONPATH=src python -m repro_torch.launch.profile --workload serve \
+        --batch 8 --prompt-len 512
 """
 from __future__ import annotations
 
@@ -20,10 +27,12 @@ import torch
 
 
 def _group(name: str) -> str:
-    for key in ("env_mega_step", "fused_policy_mlp", "gae_"):
+    for key in ("env_mega_step", "fused_policy_mlp", "gae_",
+                "paged_decode", "flash_attention"):
         if key in name:
             return key.rstrip("_") + " (port kernel)"
-    if "gemm" in name.lower() or "cutlass" in name.lower():
+    low = name.lower()
+    if "gemm" in low or "cutlass" in low or "nvjet" in low:
         return "GEMM (cuBLAS)"
     return "other"
 
@@ -37,34 +46,20 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def main(argv=None):
-    from repro_torch.envs import make_env
-    from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
-
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--env", default="ShadowHand")
-    ap.add_argument("--num-env", type=int, default=16384)
-    ap.add_argument("--rollout", type=int, default=16)
-    ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = make_env(args.env, megakernel=True, device="cuda")
-    cfg = PPOConfig(num_steps=args.rollout, use_fused_kernels=True)
-    state = list(init_train(args.seed, env, env.spec.policy_dims,
-                            args.num_env, device="cuda"))
-    step = make_train_step(env, cfg)
-    for _ in range(args.warmup):
-        state[:] = step(*state)[:5]
+def _profile(fn):
+    """Run ``fn`` once under the profiler; returns (wall us, profile)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state[:] = step(*state)[:5]
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, prof
+
+
+def _report(title, wall_us, prof):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
@@ -74,15 +69,75 @@ def main(argv=None):
         dur = e.time_range.end - e.time_range.start
         by_group[_group(e.name)] += dur
         by_name[e.name] += dur
-    print(f"{args.env} N={args.num_env} T={args.rollout}: iteration wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {1 - busy_us / wall_us:.4f}, {len(kernels)} device "
-          "events")
+    print(f"{title}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, "
+          f"{len(kernels)} device events")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {us / 1e3:10.3f} ms  {us / wall_us:7.2%} of wall")
     print("top kernels:")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3:10.3f} ms  {n[:100]}")
+
+
+def _serve(args):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(args.arch)
+    eng = ServeEngine(cfg, T.init_model(args.seed, cfg, "cuda"),
+                      max_slots=args.batch,
+                      max_seq=args.prompt_len + args.gen + 8,
+                      device="cuda")
+    # warm-up: cuBLAS handles, bf16 GEMM heuristics, kernel builds
+    eng.serve([Request(tokens=list(range(1, 40)), max_new_tokens=3)])
+    toks = make_batch(cfg, InputShape("serve", args.prompt_len, args.batch,
+                                      "prefill"), seed=args.seed)["tokens"]
+    for i in range(args.batch):
+        eng.submit(Request(tokens=toks[i], max_new_tokens=args.gen))
+    title = f"{args.arch} full width, {args.batch} x {args.prompt_len}"
+    _report(f"{title}: admission step (prefill + 1 decode step)",
+            *_profile(eng.step))
+    for _ in range(2):
+        eng.step()
+    _report(f"{title}: one decode step at {eng.active_count} rows",
+            *_profile(eng.step))
+
+
+def main(argv=None):
+    from repro_torch.envs import make_env
+    from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=("ppo", "serve"), default="ppo")
+    ap.add_argument("--env", default="ShadowHand")
+    ap.add_argument("--num-env", type=int, default=16384)
+    ap.add_argument("--rollout", type=int, default=16)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--gen", type=int, default=64)
+    args = ap.parse_args(argv)
+    if args.workload == "serve":
+        return _serve(args)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = make_env(args.env, megakernel=True, device="cuda")
+    cfg = PPOConfig(num_steps=args.rollout, use_fused_kernels=True)
+    state = list(init_train(args.seed, env, env.spec.policy_dims,
+                            args.num_env, device="cuda"))
+    step = make_train_step(env, cfg)
+    for _ in range(args.warmup):
+        state[:] = step(*state)[:5]
+
+    def one():
+        state[:] = step(*state)[:5]
+    _report(f"{args.env} N={args.num_env} T={args.rollout}: iteration",
+            *_profile(one))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,281 @@
+"""Model assembly for the dense family: embeddings, the attention + MLP
+layer stack, KV caches, and the prefill / decode entry points (port of
+``repro/models/transformer.py``).
+
+Params keep the reference's layout, including the stacked leading layer
+dimension of ``params["layers"]``; the reference's ``lax.scan`` over the
+stack becomes a Python loop that hands each layer its slice of the stacked
+params and caches, and the layer writes its cache slice in place.
+
+Only the dense family runs here.  Mixture-of-experts stacks
+(``models/moe.py``), recurrent and hybrid stacks (``models/ssm.py``) and
+the vision/audio frontends raise ``NotImplementedError``: they are ROADMAP
+queue A item 16's remaining modules.  ``loss_fn`` waits for the LM
+training slice (item 18).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (PagedKVCache, attention,
+                                          init_attention_params, make_cache,
+                                          make_paged_cache)
+from repro_torch.models.layers import (embed, init_embedding, init_linear,
+                                       init_mlp, init_rmsnorm, linear, mlp,
+                                       rms_norm, softcap, unembed)
+
+BIG_WINDOW = 1 << 30  # "no window" sentinel, as in the reference
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the families the port does not run yet."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
+            "ported yet (ROADMAP queue A item 16)")
+    if cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent/hybrid stacks (models/ssm.py) are not "
+            "ported yet (ROADMAP queue A item 16)")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(ROADMAP queue A item 16)")
+
+
+# ======================================================================
+# init
+# ======================================================================
+def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig):
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, gen.device),
+        "attn": init_attention_params(gen, cfg.d_model, cfg.num_heads,
+                                      cfg.num_kv_heads, cfg.resolved_head_dim,
+                                      cfg.qkv_bias),
+        "ln2": init_rmsnorm(cfg.d_model, gen.device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_model(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
+    """Random f32 params from ``seed`` with the reference's tree layout.
+    The draws differ from the reference's (``jax.random`` is not
+    reproducible here): parity tests carry the reference's params across
+    with ``interop.model_params``."""
+    check_supported(cfg)
+    gen = torch.Generator(device).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "final_norm": init_rmsnorm(cfg.d_model, device),
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+    params["layers"] = _stack([_init_attn_layer(gen, cfg)
+                               for _ in range(cfg.num_layers)])
+    return params
+
+
+def cast_params(params, cfg: ModelConfig):
+    """Every float leaf except the RMSNorm scales in ``cfg.dtype``.  The
+    reference casts the matmul weights and the embedding table to the
+    activation type inside every call; that cast is exact and
+    deterministic, so doing it once gives the same numbers without
+    re-reading the f32 weights each step.  The norm scales stay f32, as
+    ``rms_norm`` multiplies in f32."""
+    dt = torch_dtype(cfg)
+
+    def go(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: go(v, k) for k, v in tree.items()}
+        if key == "scale" or not tree.is_floating_point():
+            return tree
+        return tree.to(dt)
+    return go(params)
+
+
+# ======================================================================
+# caches
+# ======================================================================
+def _stacked(one, n: int):
+    return type(one)(*[t[None].repeat((n,) + (1,) * t.ndim) for t in one])
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               window_override: Optional[int] = None, dtype=None,
+               device="cpu"):
+    """Stacked per-layer dense caches for decode (leading dim = layers).
+    The reference's ``per_layer`` list of caches, each sized to its own
+    window, serves gemma2's dry runs and is not ported."""
+    check_supported(cfg)
+    dt = dtype or torch_dtype(cfg)
+    hd = cfg.resolved_head_dim
+
+    def attn_cache(window):
+        return make_cache(batch, max_seq, cfg.num_kv_heads, hd, window, dt,
+                          device)
+
+    windows = layer_windows(cfg, window_override)
+    # uniform, or mixed local/global: every cache sized to the largest
+    # window; local layers still mask to their own
+    maxw = max(windows)
+    return _stacked(attn_cache(None if maxw == BIG_WINDOW else maxw),
+                    cfg.num_layers)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     window_override: Optional[int] = None, dtype=None, *,
+                     page_size: int, num_pages: int, device="cpu"):
+    """Paged variant of :func:`init_cache`: one batch-free
+    :class:`PagedKVCache` pool per layer, stacked (page 0 = trash).  Pages
+    hold absolute positions at full depth; sliding windows apply purely
+    through masking."""
+    check_supported(cfg)
+    dt = dtype or torch_dtype(cfg)
+    one = make_paged_cache(num_pages, page_size, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, dt, device)
+    return _stacked(one, cfg.num_layers)
+
+
+def layer_windows(cfg: ModelConfig, window_override: Optional[int] = None):
+    """Static per-layer attention window list (BIG_WINDOW = unlimited)."""
+    out = []
+    for i in range(cfg.num_layers):
+        if cfg.local_global:
+            # even layers local (sliding window), odd layers global
+            if i % 2 == 0:
+                out.append(cfg.sliding_window or BIG_WINDOW)
+            else:
+                out.append(window_override or BIG_WINDOW)
+        elif cfg.sliding_window:
+            out.append(cfg.sliding_window)
+        else:
+            out.append(window_override or BIG_WINDOW)
+    return out
+
+
+# ======================================================================
+# blocks
+# ======================================================================
+def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
+                page_table=None):
+    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    a, cache = attention(
+        lp["attn"], h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, positions=positions, causal=cfg.causal,
+        window=window, attn_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+        cache=cache, page_table=page_table)
+    x = x + a
+    h = rms_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h, cfg.act), cache
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
+                window_override: Optional[int] = None, page_table=None):
+    """Run the whole layer stack; returns (x, caches).  A stacked cache
+    (leading dim = layers) is written in place through per-layer views.
+    ``page_table`` (B, M) addresses every paged layer: they share one
+    physical page-id space."""
+    check_supported(cfg)
+    windows = layer_windows(cfg, window_override)
+    for i in range(cfg.num_layers):
+        ci = None if caches is None else type(caches)(*[t[i]
+                                                         for t in caches])
+        x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
+                           windows[i], ci, page_table)
+    return x, caches
+
+
+# ======================================================================
+# model entry points
+# ======================================================================
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """batch dict -> (x (B,S,D), positions (S,)); text only."""
+    check_supported(cfg)
+    x = embed(params["embed"], batch["tokens"])
+    return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def _logits(params, cfg: ModelConfig, h):
+    if cfg.tie_embeddings:
+        lg = unembed(params["embed"], h)
+    else:
+        lg = linear(params["unembed"], h)
+    return softcap(lg, cfg.final_softcap)
+
+
+def forward(params, cfg: ModelConfig, batch, *,
+            window_override: Optional[int] = None):
+    """Full forward pass -> logits (B,S,V).  The reference also returns the
+    MoE aux loss, which is 0 for the dense family."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    x = x.to(torch_dtype(cfg))
+    h, _ = apply_stack(params, cfg, x, positions,
+                       window_override=window_override)
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)
+
+
+def prefill(params, cfg: ModelConfig, batch, max_seq: int,
+            window_override: Optional[int] = None):
+    """Prefill -> (last-position logits, filled caches).  Positions are
+    ``arange(S)`` by construction, so every layer's attention runs the
+    flash kernel on a CUDA tensor."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    x = x.to(torch_dtype(cfg))
+    caches = init_cache(cfg, x.shape[0], max_seq, window_override,
+                        torch_dtype(cfg), device=x.device)
+    h, caches = apply_stack(params, cfg, x, positions, caches=caches,
+                            window_override=window_override)
+    h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return _logits(params, cfg, h)[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, caches,
+                window_override: Optional[int] = None, page_table=None):
+    """One decode step.  token: (B,) int32; pos: (B,) int32 absolute.
+    ``page_table`` (B, M) is required when the caches are paged.
+    Returns (logits (B,V), caches)."""
+    x = embed(params["embed"], token[:, None]).to(torch_dtype(cfg))
+    h, caches = apply_stack(params, cfg, x, pos[:, None], caches=caches,
+                            window_override=window_override,
+                            page_table=page_table)
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)[:, 0], caches
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, positions, caches,
+                  page_table, window_override: Optional[int] = None):
+    """One B=1 prefill chunk written in place into the engine's paged pool
+    through ``page_table`` (M,).  tokens/positions: (C,) int32, absolute
+    (chunk k >= 1 of a prompt starts at its offset).  The reference also
+    takes the decode slot, to slice recurrent-state rows; the dense family
+    has none.  Returns (last-position logits (1, V), caches)."""
+    if not isinstance(caches, PagedKVCache):
+        raise ValueError("prefill_chunk needs the paged cache pool")
+    x = embed(params["embed"], tokens[None]).to(torch_dtype(cfg))
+    h, caches = apply_stack(params, cfg, x, positions[None], caches=caches,
+                            window_override=window_override,
+                            page_table=page_table[None])
+    h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return _logits(params, cfg, h)[:, 0], caches
+

@@ -33,3 +33,9 @@ def he_init(gen: torch.Generator, shape):
     """He-normal weights on ``gen.device``, fan-in = ``shape[0]``."""
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * (2.0 / shape[0]) ** 0.5
+
+
+def lecun_init(gen: torch.Generator, shape):
+    """LeCun-normal weights on ``gen.device``, fan-in = ``shape[0]``."""
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32) * (1.0 / shape[0]) ** 0.5

@@ -18,7 +18,8 @@ from repro.kernels.env_megakernel import mega_step_ring
 from repro_torch import interop
 from repro_torch.envs import SPECS
 from repro_torch.kernels import (_build, channel_pack, env_megakernel,
-                                 fused_policy_mlp, gae_scan, ops, ref)
+                                 flash_attention, fused_policy_mlp, gae_scan,
+                                 ops, paged_decode, ref)
 
 RNG = np.random.default_rng(1)
 
@@ -177,8 +178,16 @@ def test_cpu_calls_never_build_and_count_nothing(monkeypatch):
            "rewards": torch.ones((2, 3)), "dones": torch.zeros((2, 3)),
            "bootstrap": torch.ones(3), "actor_version": 1}
     ops.pack_channels(channel_pack.alloc_rings(pay, 2), pay, 1)
+    x = torch.ones((2, 5, 4, 64))
+    ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
+    pages = torch.ones((3, 4, 2, 64))
+    ops.paged_attention(x[:, 0], pages, pages,
+                        torch.zeros((3, 4), dtype=torch.int32),
+                        torch.ones((2, 2), dtype=torch.int32),
+                        torch.tensor([3, -1], dtype=torch.int32))
     assert set(ops.LAUNCHES) == {"env_mega_step", "gae_norm", "policy_mlp",
-                                 "nstep_returns", "pack_channels"}
+                                 "nstep_returns", "pack_channels",
+                                 "paged_attention", "flash_attention"}
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
     assert _build._libs == {}
 
@@ -227,4 +236,86 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
         channel_pack.launch(rings, pay, 1)
     with pytest.raises(ValueError, match="outside a ring"):
         channel_pack.launch(rings, pay, 2)
+    q = torch.zeros((2, 5, 4, 64))
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch(q, q[:, :, :2], q[:, :, :2])
+    pages = torch.zeros((3, 4, 2, 64))
+    i32 = dict(dtype=torch.int32)
+    args = (q[:, 0], pages, pages, torch.zeros((3, 4), **i32),
+            torch.zeros((2, 2), **i32), torch.zeros(2, **i32))
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.paged_attention(*[a.to("meta") for a in args])
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode.launch(*args)
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+
+
+# ---------------------------------------------------------- attention ----
+def _paged_case(dtype=np.float32):
+    """Ragged paged inputs: B = 4 rows over an M = 5 page table of 4-slot
+    pages.  Row 0 has an unmapped page in the middle and holes in its
+    pages, row 1 maps two pages, row 2 is idle (position -1, nothing
+    mapped), row 3 is full.  Mapped virtual page v holds positions
+    [4v, 4v + 4) or -1, as the engine writes them; every other page
+    (the trash page 0 included) holds random values that must not leak."""
+    B, H, KH, hd, P, M, N = 4, 4, 2, 32, 4, 5, 24
+    qpos = np.array([17, 6, -1, 19], np.int32)
+    table = np.full((B, M), -1, np.int32)
+    phys = iter(RNG.permutation(np.arange(1, N)))
+    for b, vs in enumerate([(0, 1, 3, 4), (0, 1), (), (0, 1, 2, 3, 4)]):
+        for v in vs:
+            table[b, v] = next(phys)
+    slot_pos = RNG.integers(-1, 40, (N, P)).astype(np.int32)
+    slot_pos[0] = -1
+    for b in range(B):
+        for v in range(M):
+            if table[b, v] >= 0:
+                p = v * P + np.arange(P)
+                p[(p > qpos[b]) | (RNG.uniform(size=P) < 0.2)] = -1
+                slot_pos[table[b, v]] = p
+    q = RNG.normal(size=(B, H, hd)).astype(dtype)
+    kp = RNG.normal(size=(N, P, KH, hd)).astype(dtype)
+    vp = RNG.normal(size=(N, P, KH, hd)).astype(dtype)
+    return q, kp, vp, slot_pos, table, qpos
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (5, None),
+                                        (None, 2.0), (9, 3.0)])
+def test_paged_attention_plain_matches_pallas_kernel(window, cap):
+    """The plain version (the CPU path of ``ops.paged_attention``) against
+    the Pallas gather-decode kernel in interpret mode, over ragged pages,
+    -1 table entries, empty slots, an idle row, a window and a softcap:
+    atol 1e-5 (f32 sums in another order).  The idle row is exactly 0."""
+    args = _paged_case()
+    want = np.asarray(jops.paged_attention(
+        *map(jnp.asarray, args), window=window, softcap=cap,
+        interpret=True))
+    targs = [torch.as_tensor(a) for a in args]
+    for fn in (ref.paged_attention_ref, ops.paged_attention):
+        got = fn(*targs, window=window, softcap=cap).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        assert (got[2] == 0.0).all()
+    assert np.isfinite(want).all()
+
+
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, None, None), (True, 7, None), (True, None, 1.5),
+    (False, None, None), (False, 10, 2.5)])
+def test_flash_attention_plain_matches_pallas_kernel(causal, window, cap):
+    """The plain version (the CPU path of ``ops.flash_attention``) against
+    the Pallas flash kernel in interpret mode: GQA (4 q heads on 2 kv
+    heads), a ragged length (37 over 16-blocks, so padded kv rows), causal
+    and bidirectional masks, a window and a softcap: atol 1e-5."""
+    B, S, H, KH, hd = 2, 37, 4, 2, 32
+    q = RNG.normal(size=(B, S, H, hd)).astype(np.float32)
+    k = RNG.normal(size=(B, S, KH, hd)).astype(np.float32)
+    v = RNG.normal(size=(B, S, KH, hd)).astype(np.float32)
+    want = np.asarray(jops.attention(q, k, v, causal=causal, window=window,
+                                     softcap=cap, block_q=16, block_k=16,
+                                     interpret=True))
+    for fn in (ref.attention_ref, ops.flash_attention):
+        got = fn(*map(torch.as_tensor, (q, k, v)), causal=causal,
+                 window=window, softcap=cap)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)

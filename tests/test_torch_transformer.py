@@ -1,0 +1,167 @@
+"""The port's dense model stack (``repro_torch/models/transformer.py``,
+``layers.py``) and configs against the JAX package on the CPU, at the
+reduced ``internlm2-1.8b`` (2 layers, d = 256, f32) with the reference's
+``init_model`` weights carried across by ``interop.model_params``.
+Logits to 1e-4 (f32 GEMMs summed in another order through 2 layers)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.configs import get_config as jget_config
+from repro.configs import get_reduced as jget_reduced
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro_torch import interop
+from repro_torch.configs import ARCHS, get_config, get_reduced
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+
+CFG = get_reduced("internlm2-1.8b")
+JCFG = jget_reduced("internlm2-1.8b")
+LOGIT_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def params():
+    jp = JT.init_model(jax.random.key(7), JCFG)
+    return jp, interop.model_params(jax.tree.map(np.asarray, jp))
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(9)
+
+
+@pytest.mark.parametrize("arch", JARCHS)
+def test_configs_are_copies(arch):
+    assert arch in ARCHS
+    for mine, theirs in ((get_config(arch), jget_config(arch)),
+                         (get_reduced(arch), jget_reduced(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert mine.approx_params() == theirs.approx_params()
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-1.3b", "zamba2-7b",
+                                  "pixtral-12b", "hubert-xlarge"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_model(0, get_reduced(arch))
+
+
+def test_layers_match_reference(rng):
+    x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)[None].repeat(2, 0) + 3
+    np.testing.assert_allclose(
+        TL.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), 500.0).numpy(),
+        np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 500.0)),
+        atol=1e-5)
+    h = rng.normal(size=(4, 24)).astype(np.float32)
+    sc = {"scale": rng.normal(size=(24,)).astype(np.float32),
+          "bias": rng.normal(size=(24,)).astype(np.float32)}
+    tsc = {k: torch.as_tensor(v) for k, v in sc.items()}
+    for jf, tf in ((JL.rms_norm, TL.rms_norm), (JL.layer_norm, TL.layer_norm)):
+        np.testing.assert_allclose(tf(tsc, torch.as_tensor(h)).numpy(),
+                                   np.asarray(jf(sc, jnp.asarray(h))),
+                                   atol=1e-5)
+    for act in ("silu", "gelu"):
+        jp = JL.init_mlp(jax.random.key(2), 24, 40, act)
+        tp = interop.model_params(jax.tree.map(np.asarray, jp))
+        np.testing.assert_allclose(
+            TL.mlp(tp, torch.as_tensor(h), act).numpy(),
+            np.asarray(JL.mlp(jp, jnp.asarray(h), act)), atol=1e-5)
+
+
+def test_init_model_layout_matches_reference():
+    """Same keys and shapes as the reference's tree (stacked layers)."""
+    mine = TT.init_model(0, CFG)
+    theirs = jax.eval_shape(lambda: JT.init_model(jax.random.key(0), JCFG))
+    flat_m = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+              jax.tree_util.tree_flatten_with_path(mine)[0]}
+    flat_t = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+              jax.tree_util.tree_flatten_with_path(theirs)[0]}
+    assert flat_m == flat_t
+    cast = TT.cast_params(mine, CFG.replace(dtype="bfloat16"))
+    assert cast["layers"]["ln1"]["scale"].dtype == torch.float32
+    assert cast["layers"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+    assert cast["embed"]["table"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_forward_and_prefill_match_reference(params, rng, window):
+    """Whole-sequence forward and prefill (the flash path, arange
+    positions): logits to 1e-4, the filled dense caches to 1e-5."""
+    jp, tp = params
+    toks = rng.integers(0, CFG.vocab_size, (2, 13)).astype(np.int32)
+    jl, _ = JT.forward(jp, JCFG, {"tokens": jnp.asarray(toks)},
+                       window_override=window)
+    tl = TT.forward(tp, CFG, {"tokens": torch.as_tensor(toks)},
+                    window_override=window)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+    jl, jc = JT.prefill(jp, JCFG, {"tokens": jnp.asarray(toks)}, 24, window)
+    tl, tc = TT.prefill(tp, CFG, {"tokens": torch.as_tensor(toks)}, 24,
+                        window)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+    for a, b in zip(jc, tc):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-5)
+
+
+def test_dense_decode_steps_match_reference(params, rng):
+    jp, tp = params
+    toks = rng.integers(0, CFG.vocab_size, (2, 5)).astype(np.int32)
+    _, jc = JT.prefill(jp, JCFG, {"tokens": jnp.asarray(toks)}, 12)
+    _, tc = TT.prefill(tp, CFG, {"tokens": torch.as_tensor(toks)}, 12)
+    for t in range(5, 9):
+        tok = rng.integers(0, CFG.vocab_size, (2,)).astype(np.int32)
+        pos = np.array([t, t], np.int32)
+        jl, jc = JT.decode_step(jp, JCFG, jnp.asarray(tok), jnp.asarray(pos),
+                                jc)
+        tl, tc = TT.decode_step(tp, CFG, torch.as_tensor(tok),
+                                torch.as_tensor(pos), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_paged_chunks_and_decode_match_reference(params, rng, kernel):
+    """``prefill_chunk`` twice (positions 0..6, then 7..11) into a paged
+    pool through one slot's table row, then batched paged decode steps
+    with a second, idle row, the port's decode read through the
+    gather-decode kernel's plain version and the reference's through its
+    Pallas kernel (interpret) when ``kernel``, else through its gather:
+    logits to 1e-4, pool slot positions equal."""
+    jp, tp = params
+    P, npages, M = 4, 12, 5
+    jc = JT.init_paged_cache(JCFG, 2, 20, None, jnp.float32, page_size=P,
+                             num_pages=npages)
+    tc = TT.init_paged_cache(CFG, 2, 20, None, torch.float32, page_size=P,
+                             num_pages=npages)
+    row = np.array([3, 7, 1, 9, -1], np.int32)
+    toks = rng.integers(0, CFG.vocab_size, 12).astype(np.int32)
+    for lo, hi in ((0, 7), (7, 12)):
+        pos = np.arange(lo, hi, dtype=np.int32)
+        jl, jc = JT.prefill_chunk(jp, JCFG, jnp.asarray(toks[lo:hi]),
+                                  jnp.asarray(pos), jc, 0, jnp.asarray(row))
+        tl, tc = TT.prefill_chunk(tp, CFG, torch.as_tensor(toks[lo:hi]),
+                                  torch.as_tensor(pos), tc,
+                                  torch.as_tensor(row))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_TOL)
+    table = np.stack([row, np.full(M, -1, np.int32)])
+    for t in range(12, 16):
+        tok = np.array([toks[t % 12], 0], np.int32)
+        pos = np.array([t, -1], np.int32)
+        jl, jc = JT.decode_step(jp, JCFG, jnp.asarray(tok), jnp.asarray(pos),
+                                jc, page_table=jnp.asarray(table),
+                                paged_kernel=kernel)
+        tl, tc = TT.decode_step(tp, CFG, torch.as_tensor(tok),
+                                torch.as_tensor(pos), tc,
+                                page_table=torch.as_tensor(table))
+        np.testing.assert_allclose(tl.numpy()[0], np.asarray(jl)[0],
+                                   atol=LOGIT_TOL)
+    np.testing.assert_array_equal(tc.slot_pos.numpy(),
+                                  np.asarray(jc.slot_pos))
