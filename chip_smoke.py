@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's three paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's four paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, and the paged serving
-engine at internlm2-1.8b's full width.
+engine at internlm2-1.8b's and at xlstm-1.3b's full width.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,7 @@ each asserting, in order:
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (all sources in
    parallel) and print the build time, nvcc's register/spill report and
    the card's name and power limit;
-2. hold each of the five kernels against its plain PyTorch version on the
+2. hold each of the eight kernels against its plain PyTorch version on the
    card at its path's shapes (ShadowHand, N = 16384, a share of envs
    forced to reset; the env megakernel without and with ring writes; GAE
    and the n-step scan at T = 16, N = 16384; the trunk at 16384 x 211 ->
@@ -19,11 +19,15 @@ each asserting, in order:
    other slot a sentinel, bit-exact; paged decode attention in bf16 at
    internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
    128, 8-token pages, 1024 positions; flash attention in bf16 at the
-   prefill shapes of phase 8) and at ragged shapes (every Table-6 env
-   and trunk width, GAE and the n-step scan at T = 5, the pack at
-   N = 999 with a version tensor; both attention kernels in f32 at hd 64
-   with 16-token pages, unmapped pages, idle rows, a window and a
-   softcap);
+   prefill shapes of phase 8; chunkwise mLSTM at phase 10's shapes, B = 4,
+   4 heads, S = 512, dh 512, chunk 256 from a zero state, and B = 1,
+   S = 256 from a non-zero state, h and the final (C, n, m) each within
+   1e-4 of the plain output's largest magnitude) and at ragged shapes
+   (every Table-6 env and trunk width, GAE and the n-step scan at T = 5,
+   the pack at N = 999 with a version tensor; both attention kernels in
+   f32 at hd 64 with 16-token pages, unmapped pages, idle rows, a window
+   and a softcap; mLSTM at dh 64, chunk 16, S = 48 and S = 1 from a
+   non-zero state with strongly negative log_f and large log_i);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
    permutations;
@@ -53,7 +57,21 @@ each asserting, in order:
    tok/s, and how many tokens of two requests match ``oracle_generate``
    (bf16 GEMMs at B = 1 and B = 8 round differently, so this is printed,
    not asserted);
-9. time each kernel, its plain version and, where one PyTorch call
+9. check a small f32 xlstm engine (reduced xlstm-1.3b: one mLSTM and one
+   sLSTM block, d = 256, dh 64, chunked prefill, slots reused) on the
+   card against the same engine on the CPU: identical greedy tokens;
+10. drive the xlstm serving path: a paged ``ServeEngine`` over
+   xlstm-1.3b at full width in bf16 (random weights from seed 0), 8
+   slots, ``max_seq`` 1024, ``chunk_prefill`` 512, serving four 512-token
+   prompts (one B = 4 prefill dispatch, two mLSTM chunks inside each
+   launch), three 128-token prompts (one B = 3 dispatch) and one
+   768-token prompt (a 512 chunk, then a 256 chunk from the carried
+   state), 64 greedy tokens each, with the launch counters set to 0 just
+   before and read just after; it asserts exactly 42 mLSTM launches (one
+   a mLSTM block) per prefill dispatch and per chunk and none in decode
+   steps, and prints prefill and decode tok/s, peak device memory and
+   the ``oracle_generate`` match count of two requests;
+11. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events, and print one
    ``{"kernels": [...]}`` line.
 
@@ -93,9 +111,16 @@ ARCH = "internlm2-1.8b"
 # own magnitude (2^(e-7) for |o| in [2^e, 2^(e+1))), plus BF16_ATOL for
 # elements near 0 whose ulp is below the f32 sums' rounding; f32 ones 1e-4
 BF16_ATOL = 2.0 ** -14
+XARCH = "xlstm-1.3b"
+# mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
+# dispatch and of the 768-token prompt's second chunk
+MLSTM_MAIN = [(4, 4, 512, 512, 256, True), (1, 4, 256, 512, 256, False)]
+# f32 tolerances: max |kernel - plain|; for the mLSTM outputs, relative
+# to max(1, the plain output's largest magnitude)
 TOL = {"env_mega_step": 1e-4, "gae_norm": 1e-4, "policy_mlp": 1e-4,
        "nstep_returns": 1e-5, "pack_channels": 0.0,
-       "paged_attention": 1e-4, "flash_attention": 1e-4}
+       "paged_attention": 1e-4, "flash_attention": 1e-4,
+       "mlstm_chunkwise": 1e-4}
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
                       "src/repro/kernels/env_megakernel.py:179"),
@@ -111,6 +136,8 @@ KERNELS = {
                         "src/repro/kernels/paged_decode.py:77"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:80"),
+    "mlstm_chunkwise": ("src/repro_torch/csrc/mlstm_chunkwise.cu",
+                        "src/repro/kernels/mlstm_scan.py:74"),
 }
 
 
@@ -330,15 +357,26 @@ def check_small_iteration(dev):
         mv = lambda x: tree_map(lambda t: t.to(d), x)
         res = train_iteration(mv(p), mv(o), env, mv(es), ob.to(d), None,
                               cfg, noise=noise.to(d), perms=perms.to(d))
-        out[str(d)] = tree_map(lambda t: t.cpu(), (res[0], res[5]))
-    (pc, mc), (pg, mg) = out["cpu"], out[str(dev)]
+        out[str(d)] = tree_map(lambda t: t.cpu(), (res[0], res[5], res[1]))
+    (pc, mc, oc), (pg, mg, og) = out["cpu"], out[str(dev)]
     for k in ("loss", "reward_mean", "reward_sum", "episode_done_frac"):
         assert abs(float(mc[k]) - float(mg[k])) <= 1e-4, (k, mc[k], mg[k])
     moved = max(max_err(a, b) for a, b in zip(tree_leaves(pc), p0))
     assert moved > 1e-4, ("no update on the CPU", moved)
-    perr = max(max_err(a, b) for a, b in zip(tree_leaves(pc),
-                                             tree_leaves(pg)))
-    assert perr <= 1e-5, perr
+    errs = [max_err(a, b) for a, b in zip(tree_leaves(pc), tree_leaves(pg))]
+    perr = max(errs)
+    if perr > 1e-5:
+        # name the worst element and its Adam moments on both sides, so a
+        # failure shows whether a near-zero second moment amplified it
+        i = errs.index(perr)
+        j = int((tree_leaves(pc)[i] - tree_leaves(pg)[i]).abs().argmax())
+        at = lambda t: float(t.reshape(-1)[j])
+        worst = {"leaf": i, "element": j, "start": at(p0[i]),
+                 "cpu": at(tree_leaves(pc)[i]), "card": at(tree_leaves(pg)[i])}
+        for side, o in (("cpu", oc), ("card", og)):
+            worst[f"{side}_mu"] = at(tree_leaves(o.mu)[i])
+            worst[f"{side}_nu"] = at(tree_leaves(o.nu)[i])
+        raise AssertionError(("params card vs CPU", perr, worst))
     return perr, moved
 
 
@@ -501,6 +539,50 @@ def check_flash(args, tol, **kw):
     return held(got, want, tol, "flash_attention")
 
 
+# -------------------------------------------------------------- mLSTM ----
+def mlstm_inputs(B, H, S, dh, zero, gen, dev, li_scale=1.0, lf_shift=2.0):
+    """q, k, v ~ N(0, 1), log_i ~ N(0, li_scale^2), log_f =
+    logsigmoid(N(lf_shift, 1)), and a zero or N(0, 1) (C0, n0, m0)."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, v = r(B, H, S, dh), r(B, H, S, dh), r(B, H, S, dh)
+    li = r(B, H, S) * li_scale
+    lf = torch.nn.functional.logsigmoid(r(B, H, S) + lf_shift)
+    st = (r(B, H, dh, dh), r(B, H, dh), r(B, H))
+    if zero:
+        st = tuple(torch.zeros_like(t) for t in st)
+    return (q, k, v, li, lf, *st)
+
+
+def check_mlstm(args, chunk):
+    """h and the final (C, n, m): finite, and each within TOL of the plain
+    output's largest magnitude (at least 1).  Returns max |error|."""
+    from repro_torch.kernels import ops, ref
+    got = ops.mlstm_chunkwise(*args, chunk=chunk)
+    want = ref.mlstm_chunkwise_ref(*args, chunk)
+    torch.cuda.synchronize()
+    err = 0.0
+    for nm, g, w in zip(("h", "C", "n", "m"), got, want):
+        assert g.shape == w.shape and bool(g.isfinite().all()), nm
+        e = max_err(g, w)
+        scale = max(1.0, float(w.abs().max()))
+        assert e <= TOL["mlstm_chunkwise"] * scale, (nm, e, scale)
+        err = max(err, e)
+    return err
+
+
+def mlstm_bound(B, H, S, dh, L):
+    # q, k, v, h (B,H,S,dh), the gates (B,H,S), the state in and out;
+    # per (b, h, chunk) what the function needs: the causal halves of
+    # q k^T and scores v (L^2 dh each; the denominator's in-chunk part is
+    # the score rows' sums), 2 L dh^2 each for q C^T and the C update,
+    # and 2 L dh each for q . n and the n update
+    bytes_ = 4 * (4 * B * H * S * dh + 2 * B * H * S
+                  + 2 * (B * H * dh * dh + B * H * dh + B * H))
+    ops_ = B * H * (S // L) * (2 * L * L * dh + 4 * L * dh * dh
+                               + 4 * L * dh)
+    return bytes_, ops_
+
+
 # ------------------------------------------------------------ serving ----
 def serve_stream(vocab, seed, head_len, n_long, long_len, n_short,
                  short_len, huge_len, gen_tokens):
@@ -568,6 +650,126 @@ def check_small_engine(dev):
     assert launches["paged_attention"] > 0 and \
         launches["flash_attention"] > 0, launches
     return launches
+
+
+def check_small_xlstm_engine(dev):
+    """A small f32 engine (reduced xlstm-1.3b: one mLSTM and one sLSTM
+    block, d = 256, dh 64) with chunked prefill and more requests than
+    slots, on the card and on the CPU from the same params: greedy tokens
+    identical, page tables equal."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    cfg = get_reduced(XARCH)
+    params = T.init_model(0, cfg, "cpu")
+    toks, tables = {}, {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, params, max_slots=4, max_seq=96, device=d,
+                          chunk_prefill=16)
+        longs, shorts, huge = serve_stream(cfg.vocab_size, 1, 20, 3, 40, 2,
+                                           12, 64, 12)
+        ops.reset_launches()
+        done = drive_engine(eng, longs, shorts, huge)
+        assert len(done) == 6 and all(len(c.tokens) == 12 for c in done)
+        toks[str(d)] = sorted((len(c.request.tokens), c.tokens)
+                              for c in done)
+        tables[str(d)] = eng._table.copy()
+        launches = dict(ops.LAUNCHES)
+    assert toks["cpu"] == toks[str(dev)], "card and CPU tokens differ"
+    assert (tables["cpu"] == tables[str(dev)]).all()
+    assert launches["mlstm_chunkwise"] > 0, launches
+    return launches
+
+
+def run_xlstm(dev):
+    """xlstm-1.3b at full width in bf16, random weights from seed 0: the
+    phase-10 traffic through a paged ``ServeEngine``, with the launch
+    counters set to 0 just before and read just after."""
+    import numpy as np
+    from repro_torch.configs import get_config, xlstm_1_3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    cfg = get_config(XARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, T.init_model(0, cfg, dev), max_slots=8,
+                      max_seq=1024, device=dev, chunk_prefill=512)
+    # warm-up: cuBLAS handles and bf16 GEMM heuristics, one small request
+    eng.serve([Request(tokens=list(range(1, 33)), max_new_tokens=3)])
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=64) for n in (512,) * 4 + (128,) * 3
+            + (768,)]
+    # the prompts of at most chunk_prefill tokens prefill whole, batched by
+    # length (two dispatches); the 768-token one in two chunks
+    chunks = sum(-(-len(r.tokens) // eng.chunk_prefill) for r in reqs
+                 if len(r.tokens) > eng.chunk_prefill)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    assert eng.prefill_dispatches == 2 and chunks == 2, (
+        eng.prefill_dispatches, chunks)
+    # one launch an mLSTM block per dispatch and per chunk, none in decode
+    per_prefill = cfg.layer_kinds.count("mlstm")
+    if cfg == xlstm_1_3b.FULL:
+        assert per_prefill == 42, per_prefill     # 6 x 7 mLSTM blocks
+    want = {k: 0 for k in TOL}
+    want["mlstm_chunkwise"] = per_prefill * (eng.prefill_dispatches + chunks)
+    assert launches == want, (launches, want)
+    assert tel.total_decode_steps >= 63
+    assert len(done) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == 64 for c in done)
+    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
+    gen = tel.total_tokens - len(reqs)
+    stats = {
+        "setup_s": setup_s, "wall_s": wall,
+        "prompt_tokens": tel.total_prompt_tokens,
+        "generated_tokens": tel.total_tokens,
+        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
+        "decode_tok_s": gen / tel.total_decode_s,
+        "decode_steps": tel.total_decode_steps,
+        "decode_ms_per_step": 1e3 * tel.total_decode_s
+        / tel.total_decode_steps,
+        "prefill_dispatches": eng.prefill_dispatches,
+        "prefill_chunks": chunks,
+        "end_to_end_tok_s": tel.total_tokens / wall,
+        "cache_gb": eng.cache_bytes / 1e9,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    # oracle agreement (printed), with the B = 1 path's top-2 logit margin
+    # at the first divergence: prefill the prompt, then decode the oracle's
+    # own tokens up to it (xlstm's dense cache needs no page table)
+    by_rid = {c.rid: c.tokens for c in done}
+    agree = []
+    for r in (reqs[4], reqs[7]):       # a 128-token and the 768-token prompt
+        orc = eng.oracle_generate(r)
+        got = by_rid[r.rid]
+        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
+                 len(orc))
+        margin = None
+        if n < len(orc):
+            lg, cache = T.prefill(eng.params, cfg, {"tokens": torch.as_tensor(
+                r.tokens[None], device=dev)}, eng.max_seq)
+            for i in range(n):
+                lg, cache = T.decode_step(
+                    eng.params, cfg, torch.tensor([orc[i]], device=dev),
+                    torch.tensor([len(r.tokens) + i], device=dev), cache)
+            top = torch.topk(lg[0].float(), 2).values
+            margin = float(top[0] - top[1])
+        agree.append({"prompt": len(r.tokens), "matching": n,
+                      "of": len(orc), "top2_margin_at_divergence": margin})
+    stats["oracle"] = agree
+    return launches, stats
 
 
 def run_serve(dev):
@@ -771,9 +973,14 @@ def main() -> int:
                          0.0) for b, sq in FLASH_SHAPES]
     errs["flash_attention"] = max(e for e, _ in flash)
     ulps["flash_attention"] = max(u for _, u in flash)
+    mlstm_main = [(mlstm_inputs(*shape[:4], zero, gen, dev), chunk)
+                  for *shape, chunk, zero in MLSTM_MAIN]
+    errs["mlstm_chunkwise"] = max(check_mlstm(a, c) for a, c in mlstm_main)
     for k, e in errs.items():
         tol = f"tol {TOL[k]:g}" if k not in ulps else \
             f"{ulps[k]:.3g} of one bf16 ulp of each element, tol 1"
+        if k == "mlstm_chunkwise":
+            tol = f"tol {TOL[k]:g} of each output's largest magnitude"
         print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} ({tol})")
     f32 = torch.float32
     for kw in (dict(), dict(window=37, softcap=5.0)):
@@ -798,6 +1005,13 @@ def main() -> int:
         e2 = check_trunk(sp.policy_dims[:-1], N_RAGGED, gen, dev)
         print(f"[check] {name} N={N_RAGGED}: env max_abs_err={e1:.3g}, "
               f"trunk {sp.policy_dims[:-1]} max_abs_err={e2:.3g}")
+    for S in (48, 1):
+        e = check_mlstm(mlstm_inputs(2, 3, S, 64, False, gen, dev, 5.0, -6.0),
+                        16)
+        print(f"[check] mlstm_chunkwise B=2 H=3 S={S} dh 64 chunk 16, "
+              f"non-zero state, log_i x5, log_f ~ logsigmoid(N(-6, 1)): "
+              f"max_abs_err={e:.3g} (tol {TOL['mlstm_chunkwise']:g} of each "
+              "output's largest magnitude)")
     print(f"[check] gae_norm T=5 N={N_RAGGED}: max_abs_err="
           f"{check_gae(5, N_RAGGED, gen, dev):.3g}")
     print(f"[check] nstep_returns T=5 N={N_RAGGED}: max_abs_err="
@@ -881,9 +1095,26 @@ def main() -> int:
           f"{stats['decode_tok_s']:,.1f} tok/s "
           f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows)")
     del eng
+
+    # 9. small xlstm engine against the CPU -------------------------------
+    la = check_small_xlstm_engine(dev)
+    print(f"[parity] small f32 serving engine ({XARCH} reduced, mLSTM "
+          f"kernel, chunked prefill, reused slots) card vs CPU: greedy "
+          f"tokens and page tables identical, launches {la}")
+
+    # 10. the xlstm serving path --------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats = run_xlstm(dev)
+    by_path["serve_xlstm"] = la
+    print(f"[serve_xlstm] {XARCH} full width bf16, 8 slots, max_seq 1024, "
+          f"chunk 512: launches {la}, stats {json.dumps(stats)}")
+    print(f"[serve_xlstm] prefill {stats['prefill_tok_s']:,.1f} tok/s, "
+          f"decode {stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows), "
+          f"peak {stats['peak_mem_gb']:.2f} GB")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
-    # 9. timings ------------------------------------------------------------
+    # 11. timings -----------------------------------------------------------
     _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
     r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
     x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)
@@ -938,6 +1169,11 @@ def main() -> int:
         lambda: ref.attention_ref(fq, fk, fv),
         lambda: sdpa(*ft, is_causal=True, enable_gqa=True),
         flash_bound(fb, fs, FH, FKH, FHD, 2), PEAK_BF16)
+    (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
+    timings["mlstm_chunkwise"] = (
+        lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
+        lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
+        mlstm_bound(*shape[:4], mc))
     for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
         b_ms, b_by = bound_ms(nbytes, nops, *peak)
         # plain, kernel, kernel, plain: report the mean of each pair

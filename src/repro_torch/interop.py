@@ -86,14 +86,22 @@ def model_params(tree, device="cpu", dtype=None):
     return tree_map(leaf, tree)
 
 
-def paged_cache(cache, device="cpu"):
-    """A reference ``PagedKVCache`` (or its stacked per-layer form) as the
-    port's, ``slot_pos`` int32."""
-    from repro_torch.models.attention import PagedKVCache
-    return PagedKVCache(k_pages=_tensor(cache.k_pages, device),
-                        v_pages=_tensor(cache.v_pages, device),
-                        slot_pos=_tensor(cache.slot_pos, device).to(
-                            torch.int32))
+def cache_tree(tree, device="cpu"):
+    """A reference cache tree (numpy leaves) as the port's: a stacked
+    ``KVCache`` or ``PagedKVCache``, or a patterned stack's dict of those
+    and of ``MLSTMState``/``SLSTMState`` nodes.  Nodes are matched by
+    class name and read by field name; leaves keep their dtypes."""
+    from repro_torch.models.attention import KVCache, PagedKVCache
+    from repro_torch.models.ssm import MLSTMState, SLSTMState
+    kinds = {c.__name__: c for c in (KVCache, PagedKVCache, MLSTMState,
+                                     SLSTMState)}
+
+    def node(n):
+        cls = kinds[type(n).__name__]
+        return cls(**{f: _tensor(getattr(n, f), device) for f in cls._fields})
+    if isinstance(tree, dict):
+        return {k: node(v) for k, v in tree.items()}
+    return node(tree)
 
 
 def to_numpy(obj):

@@ -16,7 +16,7 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"env_mega_step": 0, "gae_norm": 0, "policy_mlp": 0,
             "nstep_returns": 0, "pack_channels": 0, "paged_attention": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "mlstm_chunkwise": 0}
 
 
 def reset_launches():
@@ -137,4 +137,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     out = fa.launch(q, k, v, causal=causal, window=window, softcap=softcap,
                     scale=scale)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
+    """Chunkwise mLSTM from the state (C0, n0, m0): log-gated masked linear
+    attention inside chunks of ``L = min(chunk, S)`` steps (L must divide
+    S) and the state carried across them.  q/k/v: (B, H, S, dh);
+    log_i/log_f: (B, H, S); C0: (B, H, dh, dh) storing v (x) k; n0:
+    (B, H, dh); m0: (B, H); all f32.  Returns (h (B, H, S, dh), C, n, m)."""
+    if _on_cpu(q, "mlstm_chunkwise"):
+        return ref.mlstm_chunkwise_ref(q, k, v, log_i, log_f, C0, n0, m0,
+                                       chunk)
+    from repro_torch.kernels import mlstm_scan
+    out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0, chunk=chunk)
+    LAUNCHES["mlstm_chunkwise"] += 1
     return out

@@ -256,3 +256,25 @@ def paged_attention_ref(q, k_pages, v_pages, slot_pos, table, positions, *,
     o = torch.einsum("bkgs,bskd->bkgd", p,
                      torch.where(valid[:, :, None, None], v, 0.0))
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def mlstm_chunkwise_ref(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
+    """Chunkwise-parallel stabilized mLSTM from a given state, the plain
+    version of the mLSTM kernel.  q/k/v: (B, H, S, dh); log_i/log_f:
+    (B, H, S); C0 (B, H, dh, dh) storing v (x) k, n0 (B, H, dh), m0 (B, H),
+    all f32.  Runs ``models.ssm._mlstm_chunk`` over chunks of
+    ``L = min(chunk, S)`` steps, which must divide S.  Returns
+    (h (B, H, S, dh), C, n, m)."""
+    from repro_torch.models.ssm import _mlstm_chunk
+    S = q.shape[2]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"seq {S} not divisible by chunk {L}")
+    C, n, m = C0, n0, m0
+    outs = []
+    for c in range(S // L):
+        sl = slice(c * L, (c + 1) * L)
+        h, C, n, m = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                  log_i[:, :, sl], log_f[:, :, sl], C, n, m)
+        outs.append(h)
+    return torch.cat(outs, dim=2), C, n, m

@@ -6,11 +6,16 @@ then one iteration under ``torch.profiler`` with CUDA activity.
 ``--workload serve`` builds a paged ``ServeEngine`` over
 ``--arch`` at full width (random weights), submits ``--batch`` prompts of
 ``--prompt-len`` tokens, and profiles the first engine step (the batched
-whole-prompt prefill through the flash kernel, then one decode step) and,
-after two warm-up steps, one decode-only step.  Each report prints the
-wall time, the device's busy and idle shares (idle = 1 - union of kernel
-intervals / wall time), device time by group (the port kernels, cuBLAS
-GEMMs, everything else), and the top kernels by device time.
+whole-prompt prefill through the flash or mLSTM kernel, then one decode
+step) and, after two warm-up steps, one decode-only step.  Each report
+prints the wall time, the device's busy and idle shares (idle = 1 - union
+of kernel intervals / wall time), device time by group (the port kernels,
+cuBLAS GEMMs, everything else), and the top kernels by device time.  For
+a stack with sLSTM blocks (``--arch xlstm-1.3b``) each ``slstm_apply``
+call runs inside a ``record_function`` range (no sync is added), and the
+kernels that host ops inside such a range launched count in their own
+group, "sLSTM blocks": its per-step plain ops are otherwise
+indistinguishable from the rest.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --env ShadowHand \
         --num-env 16384 --rollout 16
@@ -28,7 +33,7 @@ import torch
 
 def _group(name: str) -> str:
     for key in ("env_mega_step", "fused_policy_mlp", "gae_",
-                "paged_decode", "flash_attention"):
+                "paged_decode", "flash_attention", "mlstm_"):
         if key in name:
             return key.rstrip("_") + " (port kernel)"
     low = name.lower()
@@ -59,9 +64,30 @@ def _profile(fn):
     return wall_us, prof
 
 
+SLSTM_RANGE = "slstm_apply"
+
+
+def _mark_slstm():
+    """Run ``ssm.slstm_apply`` inside a profiler range, so the kernels its
+    time loop launches can be told apart."""
+    from repro_torch.models import ssm
+    inner = ssm.slstm_apply
+
+    def marked(*a, **kw):
+        with torch.profiler.record_function(SLSTM_RANGE):
+            return inner(*a, **kw)
+    ssm.slstm_apply = marked
+
+
 def _report(title, wall_us, prof):
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    # the range also leaves a device-side annotation, which is no kernel
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != SLSTM_RANGE]
+    slstm = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == SLSTM_RANGE and e.device_type == cpu]
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     by_group, by_name = defaultdict(float), defaultdict(float)
@@ -69,6 +95,19 @@ def _report(title, wall_us, prof):
         dur = e.time_range.end - e.time_range.start
         by_group[_group(e.name)] += dur
         by_name[e.name] += dur
+    # each host op lists the kernels it launched (linked by correlation
+    # id); those of ops that start inside an sLSTM range move to its group
+    for e in events:
+        if e.device_type == cpu and any(a <= e.time_range.start < b
+                                        for a, b in slstm):
+            for k in e.kernels:
+                if k.name != SLSTM_RANGE:
+                    by_group[_group(k.name)] -= k.duration
+                    by_group["sLSTM blocks (plain ops)"] += k.duration
+    if slstm:
+        print(f"{title}: {len(slstm)} sLSTM blocks, "
+              f"{sum(b - a for a, b in slstm) / 1e3:.3f} ms of host time "
+              f"inside")
     print(f"{title}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, "
           f"{len(kernels)} device events")
@@ -87,6 +126,8 @@ def _serve(args):
     from repro_torch.serve import Request, ServeEngine
 
     cfg = get_config(args.arch)
+    if "slstm" in (cfg.block_pattern or ()):
+        _mark_slstm()
     eng = ServeEngine(cfg, T.init_model(args.seed, cfg, "cuda"),
                       max_slots=args.batch,
                       max_seq=args.prompt_len + args.gen + 8,

@@ -1,14 +1,22 @@
 """Serving launcher — a thin CLI over the ``repro_torch.serve`` engine
 (port of ``repro/launch/serve.py``): batched prefill through the flash
-kernel and continuous-batching decode through the paged gather-decode
-kernel.  The reference serves the reduced configs because its host is a
-CPU; ``--full`` takes the published widths, which fit one H100.
+kernel (attention stacks) or the mLSTM kernel (xlstm), and
+continuous-batching decode through the paged gather-decode kernel
+(attention stacks; xlstm's recurrent decode is plain ops).  The reference
+serves the reduced configs because its host is a CPU; ``--full`` takes
+the published widths, which fit one H100.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda \\
       --batch 8 --prompt-len 512 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --full --device cuda --batch 8 --prompt-len 512 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt-len 16 --gen 8
+
+xlstm's whole-prompt prefill runs its mLSTM blocks in chunks of
+``min(256, prompt)`` steps, which must divide the prompt length, as in the
+reference.
 
 Weights are random from ``--seed``.  The disaggregated front
 (``--disagg``) comes with ``serve/disagg.py`` in a later slice.

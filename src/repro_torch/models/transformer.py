@@ -1,17 +1,25 @@
-"""Model assembly for the dense family: embeddings, the attention + MLP
-layer stack, KV caches, and the prefill / decode entry points (port of
-``repro/models/transformer.py``).
+"""Model assembly: embeddings, the homogeneous attention + MLP stack and
+the patterned recurrent stack, their caches, and the prefill / decode
+entry points (port of ``repro/models/transformer.py``).
 
 Params keep the reference's layout, including the stacked leading layer
-dimension of ``params["layers"]``; the reference's ``lax.scan`` over the
-stack becomes a Python loop that hands each layer its slice of the stacked
-params and caches, and the layer writes its cache slice in place.
+dimension of ``params["layers"]`` and, for a patterned stack (xlstm: 7 x
+mLSTM + 1 x sLSTM), of each ``params["super"]["<kind>_<i>"]`` (leading dim
+``num_super``).  The reference's ``lax.scan`` over the stack becomes a
+Python loop that hands each layer its slice of the stacked params and
+caches, and the layer writes its cache slice in place.
 
-Only the dense family runs here.  Mixture-of-experts stacks
-(``models/moe.py``), recurrent and hybrid stacks (``models/ssm.py``) and
-the vision/audio frontends raise ``NotImplementedError``: they are ROADMAP
-queue A item 16's remaining modules.  ``loss_fn`` waits for the LM
-training slice (item 18).
+A patterned stack's cache is a dict keyed like its params: recurrent states
+(``ssm.MLSTMState``, ``ssm.SLSTMState``) with a leading ``num_super`` dim
+and the batch at axis 1, kept batched beside the page pool by the serving
+engine.  A dense stack's cache is one stacked ``KVCache`` or
+``PagedKVCache``.  :func:`cache_nodes` lists either form's nodes.
+
+Runs the dense family and xlstm's mLSTM/sLSTM stack.  Mixture-of-experts
+stacks (``models/moe.py``), Mamba2 and zamba2's shared attention
+(``models/ssm.py``) and the vision/audio frontends raise
+``NotImplementedError``: they are ROADMAP queue A item 16's remaining
+modules.  ``loss_fn`` waits for the LM training slice (item 18).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
 from repro_torch.models.attention import (PagedKVCache, attention,
                                           init_attention_params, make_cache,
                                           make_paged_cache)
@@ -42,10 +51,12 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
             "ported yet (ROADMAP queue A item 16)")
-    if cfg.block_pattern:
+    other = sorted(set(cfg.block_pattern or ()) - {"mlstm", "slstm"})
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: recurrent/hybrid stacks (models/ssm.py) are not "
-            "ported yet (ROADMAP queue A item 16)")
+            f"{cfg.name}: {'/'.join(other)} blocks (models/ssm.py Mamba2, "
+            "zamba2's shared attention) are not ported yet (ROADMAP queue A "
+            "item 16)")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
@@ -66,6 +77,14 @@ def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
+    if kind == "mlstm":
+        return ssm.init_mlstm(gen, cfg.d_model, cfg.num_heads,
+                              expansion=cfg.ssm_expansion,
+                              conv_width=cfg.conv_width)
+    return ssm.init_slstm(gen, cfg.d_model, cfg.num_heads)
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -84,24 +103,31 @@ def init_model(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
-    params["layers"] = _stack([_init_attn_layer(gen, cfg)
-                               for _ in range(cfg.num_layers)])
+    if cfg.block_pattern:
+        params["super"] = {
+            f"{kind}_{i}": _stack([_init_block(gen, kind, cfg)
+                                   for _ in range(cfg.num_super)])
+            for i, kind in enumerate(cfg.block_pattern)}
+    else:
+        params["layers"] = _stack([_init_attn_layer(gen, cfg)
+                                   for _ in range(cfg.num_layers)])
     return params
 
 
 def cast_params(params, cfg: ModelConfig):
-    """Every float leaf except the RMSNorm scales in ``cfg.dtype``.  The
-    reference casts the matmul weights and the embedding table to the
-    activation type inside every call; that cast is exact and
-    deterministic, so doing it once gives the same numbers without
-    re-reading the f32 weights each step.  The norm scales stay f32, as
-    ``rms_norm`` multiplies in f32."""
+    """Every float leaf except the RMSNorm scales and the sLSTM recurrent
+    weights ``r`` in ``cfg.dtype``.  The reference casts the matmul
+    weights, biases and the embedding table to the activation type inside
+    every call; that cast is exact and deterministic, so doing it once
+    gives the same numbers without re-reading the f32 weights each step.
+    The norm scales stay f32, as ``rms_norm`` multiplies in f32, and so
+    does ``r``, which the reference reads in f32."""
     dt = torch_dtype(cfg)
 
     def go(tree, key=None):
         if isinstance(tree, dict):
             return {k: go(v, k) for k, v in tree.items()}
-        if key == "scale" or not tree.is_floating_point():
+        if key in ("scale", "r") or not tree.is_floating_point():
             return tree
         return tree.to(dt)
     return go(params)
@@ -114,14 +140,39 @@ def _stacked(one, n: int):
     return type(one)(*[t[None].repeat((n,) + (1,) * t.ndim) for t in one])
 
 
+def cache_nodes(caches):
+    """A cache tree's nodes in order: the one stacked cache of a dense
+    stack, or the values of a patterned stack's dict."""
+    return list(caches.values()) if isinstance(caches, dict) else [caches]
+
+
+def _recurrent_cache(cfg: ModelConfig, batch: int, dt, device):
+    """A patterned stack's states, each stacked over ``num_super``: f32
+    except the conv state, which is in the activation type."""
+    di = cfg.d_model * cfg.ssm_expansion
+    H = cfg.num_heads
+    caches = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "mlstm":
+            one = ssm.mlstm_init_state(batch, H, di // H, di, cfg.conv_width,
+                                       dt, device)
+        else:
+            one = ssm.slstm_init_state(batch, H, cfg.d_model // H, device)
+        caches[f"{kind}_{i}"] = _stacked(one, cfg.num_super)
+    return caches
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                window_override: Optional[int] = None, dtype=None,
                device="cpu"):
-    """Stacked per-layer dense caches for decode (leading dim = layers).
-    The reference's ``per_layer`` list of caches, each sized to its own
-    window, serves gemma2's dry runs and is not ported."""
+    """Stacked per-layer dense caches for decode (leading dim = layers), or
+    a patterned stack's dict of recurrent states.  The reference's
+    ``per_layer`` list of caches, each sized to its own window, serves
+    gemma2's dry runs and is not ported."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
+    if cfg.block_pattern:
+        return _recurrent_cache(cfg, batch, dt, device)
     hd = cfg.resolved_head_dim
 
     def attn_cache(window):
@@ -142,9 +193,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Paged variant of :func:`init_cache`: one batch-free
     :class:`PagedKVCache` pool per layer, stacked (page 0 = trash).  Pages
     hold absolute positions at full depth; sliding windows apply purely
-    through masking."""
+    through masking.  Recurrent states are fixed-size per slot and stay
+    batched exactly as in :func:`init_cache`; xlstm has no attention
+    node, so its tree holds no pool at all."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
+    if cfg.block_pattern:
+        return _recurrent_cache(cfg, batch, dt, device)
     one = make_paged_cache(num_pages, page_size, cfg.num_kv_heads,
                            cfg.resolved_head_dim, dt, device)
     return _stacked(one, cfg.num_layers)
@@ -189,6 +244,58 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _freeze_idle(old, new, positions):
+    """Write ``new`` into the state ``old`` in place, except for decode rows
+    at negative positions, whose state stays pinned.
+
+    A paged engine parks idle and still-prefilling slots at position -1;
+    without this every batched decode step would advance (corrupt) the
+    state a chunked prefill is building in that row.  Dense engines park
+    idle rows at position 0, which keeps their advance-and-overwrite
+    behavior, as in the reference."""
+    keep = positions[:, 0] >= 0
+    for o, n in zip(old, new):
+        o.copy_(torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o))
+
+
+def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
+    """One recurrent block; a given state is updated in place.  A decode
+    step (S == 1 with a cache) takes the exact recurrent update and pins
+    idle rows; everything else takes the chunkwise form, whose mLSTM part
+    is one ``ops.mlstm_chunkwise`` call, with the reference's chunk of
+    ``min(256, S)``."""
+    decode = x.shape[1] == 1 and cache is not None
+    if kind == "mlstm" and decode:
+        y, st = ssm.mlstm_decode_step(lp, x, cache, num_heads=cfg.num_heads,
+                                      expansion=cfg.ssm_expansion)
+    elif kind == "mlstm":
+        y, st = ssm.mlstm_apply(lp, x, num_heads=cfg.num_heads, state=cache,
+                                chunk=min(256, x.shape[1]),
+                                expansion=cfg.ssm_expansion)
+    else:
+        y, st = ssm.slstm_apply(lp, x, num_heads=cfg.num_heads, state=cache)
+    if decode:
+        _freeze_idle(cache, st, positions)
+    elif cache is not None:
+        for o, n in zip(cache, st):
+            o.copy_(n)
+    return y
+
+
+def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None):
+    """The reference's scan over super-blocks with the pattern unrolled
+    inside, as a Python loop; each block's state slice is written back in
+    place."""
+    for s in range(cfg.num_super):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{kind}_{i}"
+            cache = None if caches is None else type(caches[key])(
+                *[t[s] for t in caches[key]])
+            x = _apply_kind(kind, _layer(params["super"][key], s), x, cfg,
+                            positions, cache)
+    return x, caches
+
+
 def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
                 window_override: Optional[int] = None, page_table=None):
     """Run the whole layer stack; returns (x, caches).  A stacked cache
@@ -196,6 +303,8 @@ def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
     ``page_table`` (B, M) addresses every paged layer: they share one
     physical page-id space."""
     check_supported(cfg)
+    if cfg.block_pattern:
+        return _apply_patterned(params, cfg, x, positions, caches)
     windows = layer_windows(cfg, window_override)
     for i in range(cfg.num_layers):
         ci = None if caches is None else type(caches)(*[t[i]
@@ -239,7 +348,8 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
             window_override: Optional[int] = None):
     """Prefill -> (last-position logits, filled caches).  Positions are
     ``arange(S)`` by construction, so every layer's attention runs the
-    flash kernel on a CUDA tensor."""
+    flash kernel on a CUDA tensor, and every mLSTM block one launch of the
+    mLSTM kernel from a zero state."""
     x, positions = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
     caches = init_cache(cfg, x.shape[0], max_seq, window_override,
@@ -263,19 +373,30 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches,
     return _logits(params, cfg, h)[:, 0], caches
 
 
-def prefill_chunk(params, cfg: ModelConfig, tokens, positions, caches,
+def prefill_chunk(params, cfg: ModelConfig, tokens, positions, caches, slot,
                   page_table, window_override: Optional[int] = None):
-    """One B=1 prefill chunk written in place into the engine's paged pool
-    through ``page_table`` (M,).  tokens/positions: (C,) int32, absolute
-    (chunk k >= 1 of a prompt starts at its offset).  The reference also
-    takes the decode slot, to slice recurrent-state rows; the dense family
-    has none.  Returns (last-position logits (1, V), caches)."""
-    if not isinstance(caches, PagedKVCache):
+    """One B=1 prefill chunk for decode slot ``slot`` (a Python int) against
+    the engine's batched cache tree: recurrent-state leaves are viewed at
+    the slot (batch axis 1) and updated in place through the view, paged
+    attention nodes are batch-free and written in place through
+    ``page_table`` (M,), so a chunk never touches other slots' state or
+    pages.  tokens/positions: (C,) int32, absolute (chunk k >= 1 of a
+    prompt starts at its offset).  Returns (last-position logits (1, V),
+    caches)."""
+    if not cfg.block_pattern and not isinstance(caches, PagedKVCache):
         raise ValueError("prefill_chunk needs the paged cache pool")
+
+    def view(node):
+        if isinstance(node, PagedKVCache):
+            return node
+        return type(node)(*[t[:, slot:slot + 1] for t in node])
+
+    views = {k: view(n) for k, n in caches.items()} \
+        if isinstance(caches, dict) else view(caches)
     x = embed(params["embed"], tokens[None]).to(torch_dtype(cfg))
-    h, caches = apply_stack(params, cfg, x, positions[None], caches=caches,
-                            window_override=window_override,
-                            page_table=page_table[None])
+    h, _ = apply_stack(params, cfg, x, positions[None], caches=views,
+                       window_override=window_override,
+                       page_table=page_table[None])
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], caches
 

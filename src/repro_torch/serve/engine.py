@@ -13,6 +13,15 @@ reference:
   for a request's lifetime (prompt + budget) at admission.
 * **Dense (``paged=False``).**  Each slot owns a ``max_seq``-deep cache row.
 
+The cache is a tree (``transformer.cache_nodes``): a dense stack's one
+stacked cache, or a patterned stack's dict of nodes.  Recurrent states
+(xlstm's mLSTM/sLSTM) are fixed-size per slot and stay batched beside the
+pool: a prefill splices them into the slot's batch row, a chunked prefill
+first zeroes that row (``_reset_row``) and continues from it, and decode
+pins the rows of idle slots.  xlstm's tree holds no paged node at all, so
+its page pool is bookkeeping only, as in the reference; prefix sharing is
+off for patterned stacks, as there.
+
 On top of pages: batched prefill (same-length prompts admitted in one step
 share one prefill dispatch), chunked prefill (``chunk_prefill=C``: long
 prompts prefill C tokens per engine step, interleaved with decode) and
@@ -26,10 +35,12 @@ What changes in the port:
 * JAX's donated, functional cache updates become in-place writes on one
   CUDA stream: decode, splice, clear, copy-on-write and chunk prefill all
   mutate ``self._caches``.
-* Every whole-prompt prefill runs the flash kernel in each layer, and
-  every paged decode step runs the paged gather-decode kernel in each
-  layer (the reference's ``decode_kernel=True``, here the only route).
-  A prefill chunk gathers its pages in plain PyTorch, as in the
+* Every whole-prompt prefill runs the flash kernel in each attention
+  layer, and every paged decode step runs the paged gather-decode kernel
+  in each layer (the reference's ``decode_kernel=True``, here the only
+  route).  A prefill chunk gathers its pages in plain PyTorch, as in the
+  reference.  Every prefill, whole or chunked, runs the mLSTM kernel once
+  in each mLSTM block; an mLSTM decode step is plain ops, as in the
   reference.
 * The one host sync per decode step is the token readback, as in the
   reference; a prefill syncs once for its first tokens.
@@ -39,7 +50,7 @@ What changes in the port:
   only on the request's seed and position, never on batch composition.
 * ``mesh`` becomes an explicit ``device``.  The disaggregated admission
   path (``submit_prefilled``, ``take_prefilled``) comes with
-  ``serve/disagg.py`` in a later slice, as do the MoE, recurrent and
+  ``serve/disagg.py`` in a later slice, as do the MoE, Mamba2/zamba2 and
   multimodal families (``transformer.check_supported``).
 """
 from __future__ import annotations
@@ -57,7 +68,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.envs.physics import hash_u32
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.attention import PagedKVCache
 from repro_torch.serve.telemetry import ServingTelemetry
 from repro_torch.utils import resolve_device, tree_map
 
@@ -218,8 +229,10 @@ class ServeEngine:
     ``max_slots``, ``max_seq``, ``window_override``, ``paged``,
     ``page_size``, ``num_pages`` (default ``max_slots *
     ceil(max_seq/page_size) + 1``), ``batch_prefill``, ``chunk_prefill``,
-    ``share_prefix``.  ``prefill_dispatches`` counts whole-prompt
-    prefill dispatches (each runs the flash kernel once a layer).
+    ``share_prefix`` (off for patterned stacks, as in the reference).
+    ``prefill_dispatches`` counts whole-prompt prefill dispatches (each
+    runs the flash kernel once an attention layer, or the mLSTM kernel
+    once an mLSTM block).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
@@ -269,7 +282,9 @@ class ServeEngine:
             self._table = np.full((self.max_slots, self.pages_per_slot), -1,
                                   np.int32)
             self._table_dev = None           # rebuilt lazily when dirty
-            self._share = bool(share_prefix)
+            self._share = bool(share_prefix) and not cfg.block_pattern \
+                and cfg.num_experts == 0 \
+                and cfg.frontend not in ("vision", "audio")
             self._index = _PrefixIndex(self.page_size)
         else:
             self.num_pages = 0
@@ -279,7 +294,8 @@ class ServeEngine:
             self._pool = None
             self._share = False
         self._cache_bytes = sum(t.numel() * t.element_size()
-                                for t in self._caches)
+                                for node in T.cache_nodes(self._caches)
+                                for t in node)
         # host mirrors of the decode-batch inputs; idle rows feed
         # (token=0, pos=-1, temp=0) — the negative position routes their
         # paged write to the trash page — and are ignored on the way out
@@ -302,48 +318,73 @@ class ServeEngine:
                                   self.window_override, page_table=table)
         return _pick_tokens(logits, pos, seed, temp)
 
-    def _insert_paged(self, full: PagedKVCache, one: KVCache, row: int,
-                      table_row):
-        """Splice row ``row`` of a dense prefill cache into the paged pool
-        through ``table_row`` (M,), in place: a scatter by each entry's
-        absolute ``slot_pos``, so whole and ring-truncated prefills land at
-        their true positions (invalid or unmapped entries fall into the
-        trash page)."""
+    def _insert_paged(self, full, one, row: int, slot: int, table_row):
+        """Splice row ``row`` of a dense prefill cache tree into the paged
+        tree, in place.  Paged nodes: a scatter through ``table_row`` (M,)
+        by each entry's absolute ``slot_pos``, so whole and ring-truncated
+        prefills land at their true positions (invalid or unmapped entries
+        fall into the trash page).  Non-paged (recurrent-state) leaves
+        splice into batch row ``slot`` as in the dense engine."""
         P = self.page_size
-        k, v, sp = one.k[:, row], one.v[:, row], one.slot_pos[:, row]
-        ok = sp >= 0
-        safe = torch.where(ok, sp, 0)
-        vp = torch.clamp(safe // P, 0, table_row.shape[0] - 1).long()
-        phys = table_row[vp]
-        ok = ok & (phys >= 0)
-        phys = torch.where(ok, phys, 0).long()
-        off = (safe % P).long()
-        lidx = torch.arange(sp.shape[0], device=sp.device)[:, None]
-        full.k_pages.index_put_((lidx, phys, off), k.to(full.k_pages.dtype))
-        full.v_pages.index_put_((lidx, phys, off), v.to(full.v_pages.dtype))
-        full.slot_pos.index_put_((lidx, phys, off), torch.where(ok, sp, -1))
+        for f, o in zip(T.cache_nodes(full), T.cache_nodes(one)):
+            if not isinstance(f, PagedKVCache):
+                self._insert_dense(f, o, row, slot)
+                continue
+            k, v, sp = o.k[:, row], o.v[:, row], o.slot_pos[:, row]
+            ok = sp >= 0
+            safe = torch.where(ok, sp, 0)
+            vp = torch.clamp(safe // P, 0, table_row.shape[0] - 1).long()
+            phys = table_row[vp]
+            ok = ok & (phys >= 0)
+            phys = torch.where(ok, phys, 0).long()
+            off = (safe % P).long()
+            lidx = torch.arange(sp.shape[0], device=sp.device)[:, None]
+            f.k_pages.index_put_((lidx, phys, off), k.to(f.k_pages.dtype))
+            f.v_pages.index_put_((lidx, phys, off), v.to(f.v_pages.dtype))
+            f.slot_pos.index_put_((lidx, phys, off), torch.where(ok, sp, -1))
 
     @staticmethod
-    def _insert_dense(full: KVCache, one: KVCache, row: int, slot: int):
-        for f, o in zip(full, one):
-            f[:, slot] = o[:, row]
+    def _insert_dense(full, one, row: int, slot: int):
+        """Every stacked leaf is (layers or super-blocks, batch, ...):
+        splice row ``row`` of the prefill cache tree into batch row
+        ``slot``."""
+        for f, o in zip(T.cache_nodes(full), T.cache_nodes(one)):
+            for fl, ol in zip(f, o):
+                fl[:, slot] = ol[:, row]
+
+    def _paged_nodes(self) -> List[PagedKVCache]:
+        return [n for n in T.cache_nodes(self._caches)
+                if isinstance(n, PagedKVCache)]
+
+    def _reset_row(self, slot: int):
+        """Zero batch row ``slot`` of every non-paged (recurrent-state)
+        leaf.  Whole-prompt admissions overwrite the row by splice, but a
+        chunked prefill continues from the slot's current state, which on
+        a reused slot is the previous occupant's final state.  Every
+        recurrent init state is all zeros, so this restores a fresh one."""
+        for node in T.cache_nodes(self._caches):
+            if not isinstance(node, PagedKVCache):
+                for t in node:
+                    t[:, slot] = 0
 
     def _clear(self, pids: List[int]):
         """Invalidate the given physical pages (``slot_pos = -1``) in every
-        layer's pool."""
+        paged node."""
         if pids:
-            self._caches.slot_pos[:, torch.as_tensor(pids, device=self.device)] = -1
+            idx = torch.as_tensor(pids, device=self.device)
+            for c in self._paged_nodes():
+                c.slot_pos[:, idx] = -1
 
     def _copy_page(self, src: int, dst: int, keep_below: int):
         """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
-        every layer, keeping only entries at absolute position
+        every paged node, keeping only entries at absolute position
         ``< keep_below`` valid."""
-        c = self._caches
-        sp = c.slot_pos[:, src]
-        c.k_pages[:, dst] = c.k_pages[:, src]
-        c.v_pages[:, dst] = c.v_pages[:, src]
-        c.slot_pos[:, dst] = torch.where((sp >= 0) & (sp < keep_below), sp,
-                                         -1)
+        for c in self._paged_nodes():
+            sp = c.slot_pos[:, src]
+            c.k_pages[:, dst] = c.k_pages[:, src]
+            c.v_pages[:, dst] = c.v_pages[:, src]
+            c.slot_pos[:, dst] = torch.where((sp >= 0) & (sp < keep_below),
+                                             sp, -1)
 
     # ------------------------------------------------------------- queries --
     @property
@@ -596,7 +637,7 @@ class ServeEngine:
             np.asarray([it[0].temperature for it in items], np.float32))
         for r, (req, slot, row, hashes) in enumerate(items):
             if self.paged:
-                self._insert_paged(self._caches, cache, r,
+                self._insert_paged(self._caches, cache, r, slot,
                                    self._table_row_dev(slot))
             else:
                 self._insert_dense(self._caches, cache, r, slot)
@@ -625,7 +666,8 @@ class ServeEngine:
         pos = torch.arange(st.chunk_next, end, dtype=torch.int32,
                            device=self.device)
         logits, _ = T.prefill_chunk(self.params, self.cfg, toks, pos,
-                                    self._caches, self._table_row_dev(slot),
+                                    self._caches, slot,
+                                    self._table_row_dev(slot),
                                     self.window_override)
         st.chunk_next = end
         if end < L:
@@ -669,8 +711,7 @@ class ServeEngine:
             elif whole:
                 batches.setdefault(L, []).append((req, slot, row, hashes))
             else:
-                # the reference zeroes the slot's recurrent-state row here;
-                # the dense family has no recurrent state
+                self._reset_row(slot)
                 if self.chunk_prefill <= 0 or L - p0 <= self.chunk_prefill:
                     self._run_chunk(slot, st, done)   # synchronous tail
                 # else: the slot stays prefilling; step() advances one
@@ -803,7 +844,7 @@ class ServeEngine:
             row = np.full((M,), -1, np.int32)
             row[:need] = np.arange(1, need + 1)
             table = torch.as_tensor(row[None], device=self.device)
-            self._insert_paged(pool, caches, 0, table[0])
+            self._insert_paged(pool, caches, 0, 0, table[0])
             caches = pool
         seed = np.asarray([req.seed], np.int32)
         temp = np.asarray([req.temperature], np.float32)

@@ -35,7 +35,9 @@ def he_init(gen: torch.Generator, shape):
                        dtype=torch.float32) * (2.0 / shape[0]) ** 0.5
 
 
-def lecun_init(gen: torch.Generator, shape):
-    """LeCun-normal weights on ``gen.device``, fan-in = ``shape[0]``."""
+def lecun_init(gen: torch.Generator, shape, fan_in=None):
+    """LeCun-normal weights on ``gen.device``, fan-in ``fan_in`` or
+    ``shape[0]``."""
     return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) * (1.0 / shape[0]) ** 0.5
+                       dtype=torch.float32) * (1.0 / (fan_in or shape[0])) \
+        ** 0.5

@@ -47,7 +47,7 @@ def _jpaged(kp, vp, sp):
 
 
 def _tpaged(kp, vp, sp):
-    return interop.paged_cache(TA.PagedKVCache(kp, vp, sp))
+    return interop.cache_tree(TA.PagedKVCache(kp, vp, sp))
 
 
 def test_paged_write_and_gather_exact(rng):

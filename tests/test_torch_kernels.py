@@ -17,9 +17,11 @@ from repro.kernels import ops as jops
 from repro.kernels.env_megakernel import mega_step_ring
 from repro_torch import interop
 from repro_torch.envs import SPECS
+from repro.models import ssm as jssm
 from repro_torch.kernels import (_build, channel_pack, env_megakernel,
                                  flash_attention, fused_policy_mlp, gae_scan,
-                                 ops, paged_decode, ref)
+                                 mlstm_scan, ops, paged_decode, ref)
+from repro_torch.models import ssm as tssm
 
 RNG = np.random.default_rng(1)
 
@@ -185,9 +187,11 @@ def test_cpu_calls_never_build_and_count_nothing(monkeypatch):
                         torch.zeros((3, 4), dtype=torch.int32),
                         torch.ones((2, 2), dtype=torch.int32),
                         torch.tensor([3, -1], dtype=torch.int32))
+    ops.mlstm_chunkwise(*_mlstm_args(1, 2, 8, 32, zero=True), chunk=4)
     assert set(ops.LAUNCHES) == {"env_mega_step", "gae_norm", "policy_mlp",
                                  "nstep_returns", "pack_channels",
-                                 "paged_attention", "flash_attention"}
+                                 "paged_attention", "flash_attention",
+                                 "mlstm_chunkwise"}
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
     assert _build._libs == {}
 
@@ -249,6 +253,11 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
         ops.paged_attention(*[a.to("meta") for a in args])
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode.launch(*args)
+    margs = _mlstm_args(1, 2, 8, 32, zero=True)
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.mlstm_chunkwise(*[a.to("meta") for a in margs], chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlstm_scan.launch(*margs, chunk=4)
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
 
 
@@ -319,3 +328,85 @@ def test_flash_attention_plain_matches_pallas_kernel(causal, window, cap):
         got = fn(*map(torch.as_tensor, (q, k, v)), causal=causal,
                  window=window, softcap=cap)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+# -------------------------------------------------------------- mLSTM ----
+def _mlstm_args(B, H, S, dh, zero, li_scale=0.5, lf_shift=2.0):
+    """q, k, v (B, H, S, dh), log_i, log_f (B, H, S) as the reference's
+    kernel test draws them, and a zero or random (C0, n0, m0)."""
+    q, k, v = (RNG.normal(size=(B, H, S, dh)).astype(np.float32)
+               for _ in range(3))
+    li = (RNG.normal(size=(B, H, S)) * li_scale).astype(np.float32)
+    lf = np.asarray(jax.nn.log_sigmoid(
+        RNG.normal(size=(B, H, S)).astype(np.float32) + lf_shift))
+    if zero:
+        st = (np.zeros((B, H, dh, dh), np.float32),
+              np.zeros((B, H, dh), np.float32), np.zeros((B, H), np.float32))
+    else:
+        st = (RNG.normal(size=(B, H, dh, dh)).astype(np.float32),
+              RNG.normal(size=(B, H, dh)).astype(np.float32),
+              RNG.normal(size=(B, H)).astype(np.float32))
+    return [torch.as_tensor(np.array(a)) for a in (q, k, v, li, lf, *st)]
+
+
+def _jax_chunk_scan(args, chunk):
+    """The reference's ``_mlstm_chunk`` over chunks from a given state:
+    (h, C, n, m)."""
+    q, k, v, li, lf, C, n, m = [jnp.asarray(a.numpy()) for a in args]
+    S = q.shape[2]
+    L = min(chunk, S)
+    hs = []
+    for c in range(S // L):
+        sl = slice(c * L, (c + 1) * L)
+        h, C, n, m = jssm._mlstm_chunk(q[:, :, sl], k[:, :, sl],
+                                       v[:, :, sl], li[:, :, sl],
+                                       lf[:, :, sl], C, n, m)
+        hs.append(h)
+    return [np.asarray(x) for x in (jnp.concatenate(hs, axis=2), C, n, m)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 128, 16), (2, 4, 256, 32)])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_mlstm_plain_matches_pallas_kernel(shape, chunk):
+    """The plain version (the CPU path of ``ops.mlstm_chunkwise``) from a
+    zero state against the Pallas kernel in interpret mode, at the shapes
+    and tolerance of the reference's own kernel test (rtol = atol =
+    3e-4)."""
+    args = _mlstm_args(*shape, zero=True)
+    want = np.asarray(jops.mlstm(*[jnp.asarray(a.numpy()) for a in args[:5]],
+                                 chunk=chunk, interpret=True))
+    for fn in (ref.mlstm_chunkwise_ref, ops.mlstm_chunkwise):
+        h = fn(*args, chunk=chunk)[0]
+        np.testing.assert_allclose(h.numpy(), want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(48, 16), (1, 16), (40, 64)])
+def test_mlstm_plain_from_a_state_matches_reference(S, chunk):
+    """From a non-zero (C0, n0, m0), with strongly negative log_f and large
+    log_i (the stabiliser matters): h and the final (C, n, m) against the
+    reference's ``_mlstm_chunk`` scan (f32, sums in another order).  The
+    state to rtol = atol = 1e-5; h, whose values reach ~4, to atol 1e-4:
+    gate weights spanning e^+-15 over a 40-step chunk leave a few
+    denominators with cancellation (largest error seen 3.7e-5)."""
+    args = _mlstm_args(2, 3, S, 16, zero=False, li_scale=5.0, lf_shift=-6.0)
+    want = _jax_chunk_scan(args, chunk)
+    got = ops.mlstm_chunkwise(*args, chunk=chunk)
+    for g, w, atol in zip(got, want, (1e-4, 1e-5, 1e-5, 1e-5)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=atol)
+    assert all(np.isfinite(w).all() for w in want)
+
+
+def test_mlstm_plain_without_the_inter_chunk_term_fails(monkeypatch):
+    """Mutation check: a plain version whose chunks ignore the carried C
+    when reading (the inter-chunk term dropped) misses the reference by
+    far more than the tolerance, so the parity tests above can see it."""
+    args = _mlstm_args(2, 3, 48, 16, zero=False)
+    want = _jax_chunk_scan(args, 16)
+    good = tssm._mlstm_chunk
+
+    def no_inter(q, k, v, li, lf, C, n, m):
+        h = good(q, k, v, li, lf, torch.zeros_like(C), n, m)[0]
+        return (h, *good(q, k, v, li, lf, C, n, m)[1:])
+    monkeypatch.setattr(tssm, "_mlstm_chunk", no_inter)
+    h = ref.mlstm_chunkwise_ref(*args, chunk=16)[0].numpy()
+    assert np.abs(h - want[0]).max() > 1e-2

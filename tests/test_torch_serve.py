@@ -59,9 +59,10 @@ def _stream(seed, n, head_len=12, budgets=(6, 8, 3, 5, 4)):
     return out
 
 
-def _run_both(jeng, teng, stream, waves=(2, 2)):
+def _run_both(jeng, teng, stream, waves=(2, 2), each_step=None):
     """Submit in waves with two engine steps between them, then drain;
-    page tables and free pages compared after every step."""
+    page tables and free pages compared after every step, and
+    ``each_step(jeng, teng)`` called after every step when given."""
     jreqs = [JRequest(tokens=t, max_new_tokens=b) for t, b in stream]
     treqs = [Request(tokens=t, max_new_tokens=b) for t, b in stream]
     jdone, tdone, steps = [], [], 0
@@ -74,6 +75,8 @@ def _run_both(jeng, teng, stream, waves=(2, 2)):
             np.testing.assert_array_equal(teng._table, jeng._table)
         assert teng.free_pages == jeng.free_pages
         assert teng.active_count == jeng.active_count
+        if each_step is not None:
+            each_step(jeng, teng)
 
     for w in waves:
         for _ in range(w):
@@ -173,6 +176,88 @@ def test_reduced_internlm2_engine_matches_reference():
     _run_both(jeng, teng, stream)
 
 
+def _states_match(jeng, teng, tol=1e-4):
+    """Every recurrent-state leaf of the two engines' cache trees, all
+    slots, to ``tol`` (f32 sums in another order through 2 blocks)."""
+    theirs = interop.cache_tree(jax.tree.map(np.asarray, jeng._caches))
+    for key, node in theirs.items():
+        for f in node._fields:
+            np.testing.assert_allclose(
+                getattr(teng._caches[key], f).numpy(),
+                getattr(node, f).numpy(), rtol=tol, atol=tol,
+                err_msg=f"{key}.{f}")
+
+
+XLSTM = dataclasses.asdict(get_reduced("xlstm-1.3b"))
+
+
+def test_reduced_xlstm_engine_matches_reference():
+    """The slice's model at its reduced size (one mLSTM + one sLSTM block,
+    d = 256, f32), paged (its tree holds no paged node: the pool is
+    bookkeeping only), chunked prefill of 6-token chunks (merged 7-token
+    tails), staggered arrivals and more requests than slots, so slots are
+    reused: greedy tokens, page tables and free-page counts equal the
+    reference engine's, and every state leaf of every slot matches it to
+    1e-4 after every step (a reused slot's state reset, idle and
+    still-prefilling rows frozen during decode, as the reference does).
+    Prefix sharing is off for the patterned stack, as in the reference."""
+    jeng, teng = _engines(XLSTM, seed=6, chunk_prefill=6, max_slots=3,
+                          max_seq=40)
+    assert not teng._share and not jeng._share
+    assert teng.cache_bytes == jeng._cache_bytes
+    rng = np.random.default_rng(31)
+    stream = [(rng.integers(0, 512, n), b) for n, b in
+              ((14, 5), (5, 4), (20, 3), (6, 6), (13, 4), (4, 3), (19, 5))]
+    treqs, toks = _run_both(jeng, teng, stream, waves=(3, 2),
+                            each_step=_states_match)
+    for i in (0, 2):
+        assert toks[i] == teng.oracle_generate(treqs[i])
+
+
+def test_xlstm_engine_resets_reused_slots_and_freezes_idle_rows(
+        monkeypatch):
+    """Two requests served to the end leave their final states in slots 0
+    and 1.  Idle slot 1 keeps its state bit for bit across decode steps of
+    slot 0.  A chunked prefill admitted into reused slot 1 starts from a
+    zeroed row, so its state after the first chunk equals the same chunk's
+    in a fresh engine; with ``_reset_row`` disabled it does not."""
+    cfg = ModelConfig(**XLSTM)
+    tp = interop.model_params(jax.tree.map(np.asarray, JT.init_model(
+        jax.random.key(8), JModelConfig(**XLSTM))))
+    rng = np.random.default_rng(33)
+    earlier = [Request(tokens=rng.integers(0, 512, n), max_new_tokens=3)
+               for n in (7, 6)]
+    other = Request(tokens=rng.integers(0, 512, 5), max_new_tokens=6)
+    prompt = rng.integers(0, 512, 11)
+
+    def row_after_first_chunk(eng):
+        eng.submit(Request(tokens=prompt, max_new_tokens=2))
+        eng.step()
+        slot = next(i for i, s in enumerate(eng._slots)
+                    if s is not None and s.prefilling)
+        return [t[:, slot].clone() for n in eng._caches.values() for t in n]
+
+    fresh = ServeEngine(cfg, tp, device="cpu", max_slots=2, max_seq=40,
+                        chunk_prefill=4)
+    want = row_after_first_chunk(fresh)
+    for reset in (True, False):
+        eng = ServeEngine(cfg, tp, device="cpu", max_slots=2, max_seq=40,
+                          chunk_prefill=4)
+        if not reset:
+            monkeypatch.setattr(eng, "_reset_row", lambda slot: None)
+        eng.serve(earlier)                     # slots 0, 1 hold states
+        eng.submit(other)
+        eng.step()                             # other decodes in slot 0
+        dirty = [t[:, 1].clone() for n in eng._caches.values() for t in n]
+        eng.step()
+        eng.step()
+        assert all(torch.equal(a, t[:, 1]) for a, t in zip(
+            dirty, [t for n in eng._caches.values() for t in n]))
+        got = row_after_first_chunk(eng)       # admitted into slot 1
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        assert same == reset
+
+
 def test_sampling_is_batch_composition_independent():
     """A sampled request draws the same tokens alone (oracle) or batched
     with strangers, and the draw depends on (seed, position) only."""
@@ -223,3 +308,18 @@ def test_serve_launcher_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "NO_JAX_OK" in out.stdout and "decode:" in out.stdout
+
+
+def test_xlstm_launcher_runs_without_jax():
+    """``--arch xlstm-1.3b`` (reduced) on the CPU in a fresh process."""
+    code = ("import sys; from repro_torch.launch.serve import main; "
+            "done = main(['--arch', 'xlstm-1.3b', '--device', 'cpu', "
+            "'--batch', '2', '--prompt-len', '8', '--gen', '3']); "
+            "assert len(done) == 2 and all(len(c.tokens) == 3 for c in done)"
+            "; assert 'jax' not in sys.modules, 'jax was imported'; "
+            "print('NO_JAX_OK')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "NO_JAX_OK" in out.stdout and "arch=xlstm-1.3b" in out.stdout

@@ -1,8 +1,10 @@
-"""The port's dense model stack (``repro_torch/models/transformer.py``,
+"""The port's model stack (``repro_torch/models/transformer.py``,
 ``layers.py``) and configs against the JAX package on the CPU, at the
-reduced ``internlm2-1.8b`` (2 layers, d = 256, f32) with the reference's
-``init_model`` weights carried across by ``interop.model_params``.
-Logits to 1e-4 (f32 GEMMs summed in another order through 2 layers)."""
+reduced ``internlm2-1.8b`` (2 layers, d = 256, f32) and the reduced
+``xlstm-1.3b`` (one mLSTM + one sLSTM block, d = 256, f32) with the
+reference's ``init_model`` weights carried across by
+``interop.model_params``.  Logits and cache leaves to 1e-4 (f32 GEMMs
+summed in another order through 2 layers)."""
 import dataclasses
 
 import jax
@@ -46,8 +48,9 @@ def test_configs_are_copies(arch):
         assert mine.approx_params() == theirs.approx_params()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-1.3b", "zamba2-7b",
-                                  "pixtral-12b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "granite-moe-1b-a400m",
+                                  "zamba2-7b", "pixtral-12b",
+                                  "hubert-xlarge"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_model(0, get_reduced(arch))
@@ -147,7 +150,7 @@ def test_paged_chunks_and_decode_match_reference(params, rng, kernel):
         jl, jc = JT.prefill_chunk(jp, JCFG, jnp.asarray(toks[lo:hi]),
                                   jnp.asarray(pos), jc, 0, jnp.asarray(row))
         tl, tc = TT.prefill_chunk(tp, CFG, torch.as_tensor(toks[lo:hi]),
-                                  torch.as_tensor(pos), tc,
+                                  torch.as_tensor(pos), tc, 0,
                                   torch.as_tensor(row))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                    atol=LOGIT_TOL)
@@ -165,3 +168,124 @@ def test_paged_chunks_and_decode_match_reference(params, rng, kernel):
                                    atol=LOGIT_TOL)
     np.testing.assert_array_equal(tc.slot_pos.numpy(),
                                   np.asarray(jc.slot_pos))
+
+
+# ----------------------------------------------------------------- xlstm ----
+XCFG = get_reduced("xlstm-1.3b")
+JXCFG = jget_reduced("xlstm-1.3b")
+
+
+@pytest.fixture(scope="module")
+def xparams():
+    jp = JT.init_model(jax.random.key(11), JXCFG)
+    return jp, interop.model_params(jax.tree.map(np.asarray, jp))
+
+
+def _tree_close(mine, theirs, tol=LOGIT_TOL):
+    """Every leaf of the port's cache tree against the reference's."""
+    theirs = interop.cache_tree(jax.tree.map(np.asarray, theirs))
+    assert list(mine) == list(theirs)
+    for key in theirs:
+        assert type(mine[key]) is type(theirs[key])
+        for f in theirs[key]._fields:
+            a, b = getattr(mine[key], f), getattr(theirs[key], f)
+            assert a.dtype == b.dtype and a.shape == b.shape, (key, f)
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
+                                       atol=tol, err_msg=f"{key}.{f}")
+
+
+def test_xlstm_layout_and_caches_match_reference():
+    """``params["super"]`` keyed ``mlstm_0``/``slstm_1`` with a leading
+    ``num_super`` dim, and the cache trees (f32 states, conv in the
+    activation type), at the reduced and the full config."""
+    mine = TT.init_model(0, XCFG)
+    theirs = jax.eval_shape(lambda: JT.init_model(jax.random.key(0), JXCFG))
+    flat = lambda t: {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+                      jax.tree_util.tree_flatten_with_path(t)[0]}
+    assert flat(mine) == flat(theirs)
+    assert TT.cast_params(mine, XCFG.replace(dtype="bfloat16"))[
+        "super"]["slstm_1"]["r"].dtype == torch.float32
+    for cfg, jcfg in ((XCFG, JXCFG), (get_config("xlstm-1.3b"),
+                                      jget_config("xlstm-1.3b"))):
+        jc = jax.eval_shape(lambda: JT.init_paged_cache(
+            jcfg, 2, 16, page_size=4, num_pages=9))
+        tc = TT.init_paged_cache(cfg, 2, 16, page_size=4, num_pages=9,
+                                 device="meta")
+        assert list(tc) == list(jc)
+        for key in jc:
+            for f in jc[key]._fields:
+                a, b = getattr(tc[key], f), getattr(jc[key], f)
+                assert tuple(a.shape) == b.shape
+                assert str(a.dtype).split(".")[-1] == str(b.dtype), (key, f)
+
+
+def test_xlstm_forward_prefill_decode_match_reference(xparams):
+    """``forward`` and ``prefill`` of 16 tokens (one chunk), then decode
+    steps with the second row idle (position -1: its state stays pinned):
+    logits and every cache leaf to 1e-4."""
+    jp, tp = xparams
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, XCFG.vocab_size, (2, 16)).astype(np.int32)
+    jl, _ = JT.forward(jp, JXCFG, {"tokens": jnp.asarray(toks)})
+    tl = TT.forward(tp, XCFG, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+    jl, jc = JT.prefill(jp, JXCFG, {"tokens": jnp.asarray(toks)}, 24)
+    tl, tc = TT.prefill(tp, XCFG, {"tokens": torch.as_tensor(toks)}, 24)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+    _tree_close(tc, jc)
+    idle = {k: [t[:, 1].clone() for t in n] for k, n in tc.items()}
+    for t in range(16, 19):
+        tok = np.array([toks[0, t - 16], 0], np.int32)
+        pos = np.array([t, -1], np.int32)
+        jl, jc = JT.decode_step(jp, JXCFG, jnp.asarray(tok),
+                                jnp.asarray(pos), jc)
+        tl, tc = TT.decode_step(tp, XCFG, torch.as_tensor(tok),
+                                torch.as_tensor(pos), tc)
+        np.testing.assert_allclose(tl.numpy()[0], np.asarray(jl)[0],
+                                   atol=LOGIT_TOL)
+        _tree_close(tc, jc)
+    for k, leaves in idle.items():
+        for before, now in zip(leaves, tc[k]):
+            assert torch.equal(before, now[:, 1]), k
+
+
+def test_xlstm_prefill_chunk_with_slot_matches_reference(xparams):
+    """Two prefill chunks (8 then 16 tokens: one and two mLSTM chunks) into
+    slot 1 of a 3-slot paged tree whose other rows hold other states: the
+    slot's state leaves and the logits match the reference to 1e-4, and
+    rows 0 and 2 are untouched."""
+    jp, tp = xparams
+    rng = np.random.default_rng(17)
+    jc = JT.init_paged_cache(JXCFG, 3, 32, None, jnp.float32, page_size=4,
+                             num_pages=10)
+    jc = jax.tree.map(lambda x: jnp.asarray(
+        rng.normal(size=x.shape).astype(np.float32) * 0.1), jc)
+    tc = interop.cache_tree(jax.tree.map(np.asarray, jc))
+    others = {k: [t[:, [0, 2]].clone() for t in n] for k, n in tc.items()}
+    row = np.array([1, 2, 3, 4, 5, 6, -1, -1], np.int32)
+    toks = rng.integers(0, XCFG.vocab_size, 24).astype(np.int32)
+    for lo, hi in ((0, 8), (8, 24)):
+        pos = np.arange(lo, hi, dtype=np.int32)
+        jl, jc = JT.prefill_chunk(jp, JXCFG, jnp.asarray(toks[lo:hi]),
+                                  jnp.asarray(pos), jc, 1, jnp.asarray(row))
+        tl, tc = TT.prefill_chunk(tp, XCFG, torch.as_tensor(toks[lo:hi]),
+                                  torch.as_tensor(pos), tc, 1,
+                                  torch.as_tensor(row))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_TOL)
+        _tree_close(tc, jc)
+    for k, leaves in others.items():
+        for before, now in zip(leaves, tc[k]):
+            assert torch.equal(before, now[:, [0, 2]]), k
+
+
+def test_xlstm_long_prompt_must_divide_the_chunk(xparams):
+    """The reference's quirk, kept (ROADMAP queue C): a whole prompt longer
+    than 256 tokens and not a multiple of 256 raises ``ValueError`` in
+    both packages (``chunk=min(256, S)`` must divide S)."""
+    jp, tp = xparams
+    toks = np.zeros((1, 260), np.int32)
+    with pytest.raises(ValueError, match="not divisible"):
+        JT.forward(jp, JXCFG, {"tokens": jnp.asarray(toks)})
+    with pytest.raises(ValueError, match="not divisible"):
+        TT.forward(tp, XCFG, {"tokens": torch.as_tensor(toks)})
