@@ -10,7 +10,11 @@ each asserting, in order:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (all sources in
    parallel) and print the build time, nvcc's register/spill report and
-   the card's name and power limit;
+   the card's name and power limit; for the two tensor-core kernels (the
+   bf16 flash kernel and the policy trunk) count the tensor-core
+   instructions (``HGMMA``/``HMMA``) in ``cuobjdump -sass`` of the built
+   library, and assert that there are some and that nvcc reports no
+   spills;
 2. hold each of the eight kernels against its plain PyTorch version on the
    card at its path's shapes (ShadowHand, N = 16384, a share of envs
    forced to reset; the env megakernel without and with ring writes; GAE
@@ -19,15 +23,19 @@ each asserting, in order:
    other slot a sentinel, bit-exact; paged decode attention in bf16 at
    internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
    128, 8-token pages, 1024 positions; flash attention in bf16 at the
-   prefill shapes of phase 8; chunkwise mLSTM at phase 10's shapes, B = 4,
-   4 heads, S = 512, dh 512, chunk 256 from a zero state, and B = 1,
+   prefill shapes of phase 8 and at the launcher's eight 512-token
+   prompts; chunkwise mLSTM at phase 10's shapes, B = 4, 4 heads,
+   S = 512, dh 512, chunk 256 from a zero state, and B = 1,
    S = 256 from a non-zero state, h and the final (C, n, m) each within
    1e-4 of the plain output's largest magnitude) and at ragged shapes
    (every Table-6 env and trunk width, GAE and the n-step scan at T = 5,
    the pack at N = 999 with a version tensor; both attention kernels in
    f32 at hd 64 with 16-token pages, unmapped pages, idle rows, a window
-   and a softcap; mLSTM at dh 64, chunk 16, S = 48 and S = 1 from a
-   non-zero state with strongly negative log_f and large log_i);
+   and a softcap, flash also in bf16 at those ragged shapes and, in f32
+   and bf16, causal at S = 200 with window 37, where later blocks skip
+   whole key tiles below the window; mLSTM at dh
+   64, chunk 16, S = 48 and S = 1 from a non-zero state with strongly
+   negative log_f and large log_i);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
    permutations;
@@ -72,7 +80,12 @@ each asserting, in order:
    steps, and prints prefill and decode tok/s, peak device memory and
    the ``oracle_generate`` match count of two requests;
 11. time each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call, with CUDA events, and print one
+   computes the same function, that call, with CUDA events (flash at
+   phase 8's B = 3 x 128 dispatch and at the launcher's B = 8 x 512, in
+   the row's ``shapes`` list; where there is such a call, also the
+   device time of the kernel and of the call under ``torch.profiler``,
+   printed, and for flash in ``shapes``; the trunk's bound is
+   its three TF32 passes at the TF32 tensor-core peak), and print one
    ``{"kernels": [...]}`` line.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
@@ -99,18 +112,24 @@ N_A3C = 8192             # envs per serving GMI
 N_PACK_RAGGED = 999      # s*N*211 not a multiple of 4: unaligned runs
 # the serving path's kernel shapes: decode positions of the 8 slots near
 # the end of the phase-8 run (four 512 + 64, three 128 + 64, 896 + 64
-# tokens), and the whole-prompt prefill dispatch (B, S) it makes
+# tokens), the whole-prompt prefill dispatch (B, S) it makes, and the
+# launcher's (``launch/serve.py --full --batch 8 --prompt-len 512``)
 DECODE_POS = [574, 574, 574, 574, 190, 190, 190, 958]
-FLASH_SHAPES = [(3, 128), (4, 512)]
+FLASH_SHAPES = [(3, 128), (4, 512), (8, 512)]
+FLASH_TIMED = [(3, 128), (8, 512)]
+# kernels that must reach the tensor cores: (library stem, kernel name)
+TENSOR_CORE = [("flash_attention", "flash_attention_mma_kernel"),
+               ("fused_policy_mlp", "fused_policy_mlp_kernel")]
 A3C_ROUNDS = 3
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
 PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense, flop/s
+PEAK_TF32 = 495e12       # H100 SXM TF32 tensor cores, dense, flop/s
+# f32 accuracy on the TF32 tensor cores takes three passes (3xTF32)
+PEAK_3XTF32 = PEAK_TF32 / 3
 ARCH = "internlm2-1.8b"
 # bf16 attention kernels: each output element within one bf16 ulp of its
-# own magnitude (2^(e-7) for |o| in [2^e, 2^(e+1))), plus BF16_ATOL for
-# elements near 0 whose ulp is below the f32 sums' rounding; f32 ones 1e-4
-BF16_ATOL = 2.0 ** -14
+# own magnitude, plus 2^-14 (``repro_torch.utils.bf16_ulps``); f32 ones 1e-4
 XARCH = "xlstm-1.3b"
 # mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
 # dispatch and of the 768-token prompt's second chunk
@@ -152,14 +171,59 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def bf16_ulps(got, want) -> float:
-    """The largest |got - want| over one bf16 ulp of ``want``'s own element
-    (plus ``BF16_ATOL``): at most 1 passes the bf16 check."""
-    w = want.float()
-    _, e = torch.frexp(w)                 # |w| = m 2^e, m in [0.5, 1)
-    ulp = torch.where(w != 0, torch.exp2((e - 8).float()),
-                      torch.zeros_like(w))
-    return float(((got.float() - w).abs() / (ulp + BF16_ATOL)).max())
+def sass_report(build_dir, logs):
+    """For each of ``TENSOR_CORE``: the tensor-core instructions of its
+    kernel in ``cuobjdump -sass`` of the built library, and nvcc's spill
+    lines for it (every instantiation).  Asserts that it has some and that
+    nvcc reports no spills."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = {}
+    for stem, kernel in TENSOR_CORE:
+        lib = str(build_dir / f"lib{stem}.so")
+        sass = subprocess.run([tool, "-sass", lib], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and kernel in fn:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        counts[op] = counts.get(op, 0) + 1
+        spills, cur = [], ""
+        for ln in logs.get(stem, "").splitlines():
+            if "Function properties for" in ln:
+                cur = ln
+            elif "spill" in ln and kernel in cur:
+                spills.append(ln.strip())
+        assert spills, (stem, kernel, "no nvcc report")
+        assert sum(counts.values()) > 0, (stem, kernel, "no tensor-core "
+                                          "instruction in its SASS")
+        assert all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                             ln) for ln in spills), (stem, spills)
+        res[stem] = counts
+    return res
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Mean device time of one call of ``fn``: the durations of the
+    kernels it launched, under ``torch.profiler``, summed over ``reps``
+    calls and divided by ``reps``; None if the profiler saw no kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -209,11 +273,13 @@ def ring(T, S, n, sp, dev, fill=-7.0):
 
 
 def trunk_inputs(dims, n, gen, dev):
+    """x (n, dims[0]) and one layer for each pair of widths: ``dims`` is
+    the trunk's, ``spec.policy_dims[:-1]`` (the heads excluded)."""
     x = torch.rand((n, dims[0]), generator=gen, device=dev) * 2 - 1
     ws = [torch.randn((dims[i], dims[i + 1]), generator=gen, device=dev)
-          * (2.0 / dims[i]) ** 0.5 for i in range(len(dims) - 2)]
+          * (2.0 / dims[i]) ** 0.5 for i in range(len(dims) - 1)]
     bs = [torch.randn((dims[i + 1],), generator=gen, device=dev) * 0.1
-          for i in range(len(dims) - 2)]
+          for i in range(len(dims) - 1)]
     return x, ws, bs
 
 
@@ -516,6 +582,7 @@ def check_paged(args, tol, **kw):
 def held(got, want, tol, name):
     """f32: max |got - want| <= tol; bf16: every element within one bf16
     ulp of its own magnitude.  Returns (max_abs_err, ulps or None)."""
+    from repro_torch.utils import bf16_ulps
     err = max_err(got, want)
     if got.dtype == torch.float32:
         assert err <= tol, (name, got.dtype, err, tol)
@@ -947,6 +1014,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
+    for stem, counts in sass_report(_build.build_dir(),
+                                    _build.build_logs()).items():
+        print(f"[build] {stem}: tensor-core instructions in cuobjdump -sass "
+              f"{counts}, no spills")
 
     # 2. kernel against plain version -------------------------------------
     gen = torch.Generator(dev).manual_seed(0)
@@ -991,6 +1062,10 @@ def main() -> int:
                          TOL["flash_attention"], causal=True, **kw)
         e3, _ = check_flash(flash_inputs(1, 45, 4, 4, 128, gen, dev, f32),
                          TOL["flash_attention"], causal=False, **kw)
+        _, u5 = check_flash(flash_inputs(2, 77, 8, 2, 64, gen, dev, bf),
+                            0.0, causal=True, **kw)
+        _, u6 = check_flash(flash_inputs(1, 45, 4, 4, 128, gen, dev, bf),
+                            0.0, causal=False, **kw)
         a = paged_inputs(3, 8, 1, 128, 16, 9, [100, 5, -1], gen, dev, f32,
                          holes=0.2, unmapped=0.25)
         e4, _ = check_paged(a, TOL["paged_attention"], **kw)
@@ -999,7 +1074,21 @@ def main() -> int:
               f"G 2 max_abs_err={e1:.3g}, hd 128 G 8 max_abs_err={e4:.3g}; "
               f"flash_attention causal S=77 hd 64 G 4 max_abs_err={e2:.3g},"
               f" bidirectional S=45 hd 128 G 1 max_abs_err={e3:.3g} (tol "
-              "1e-4)")
+              f"1e-4); bf16 flash at the same shapes {u5:.3g} and {u6:.3g} "
+              "of one bf16 ulp of each element (tol 1)")
+    # a window narrow enough that later blocks skip whole key tiles
+    # (kv_lo > 0 needs the block's first query >= window + BK - 1)
+    for kw in (dict(window=37), dict(window=37, softcap=5.0)):
+        res = []
+        for B, H, KH, hd in ((2, 8, 2, 64), (1, 4, 2, 128)):
+            e, _ = check_flash(flash_inputs(B, 200, H, KH, hd, gen, dev, f32),
+                               TOL["flash_attention"], causal=True, **kw)
+            _, u = check_flash(flash_inputs(B, 200, H, KH, hd, gen, dev, bf),
+                               0.0, causal=True, **kw)
+            res.append(f"hd {hd} G {H // KH} f32 max_abs_err={e:.3g}, bf16 "
+                       f"{u:.3g} of one bf16 ulp")
+        print(f"[check] flash_attention causal S=200 {kw}: "
+              f"{'; '.join(res)} (tol 1e-4; 1)")
     for name, sp in SPECS.items():
         e1 = check_env(name, N_RAGGED, gen, dev, True)
         e2 = check_trunk(sp.policy_dims[:-1], N_RAGGED, gen, dev)
@@ -1147,7 +1236,7 @@ def main() -> int:
                      gae_bound(T_MAIN, N_MAIN)),
         "policy_mlp": (lambda: ops.policy_mlp(x, ws, bs),
                        lambda: ref.policy_mlp_ref(x, ws, bs), chain,
-                       trunk_bound(trunk_dims, N_MAIN)),
+                       trunk_bound(trunk_dims, N_MAIN), PEAK_3XTF32),
         "nstep_returns": (lambda: ops.nstep_returns(r, d, last),
                           lambda: ref.nstep_returns_ref(r, d, last), None,
                           nstep_bound(T_MAIN, N_MAIN)),
@@ -1156,40 +1245,71 @@ def main() -> int:
                           copies, pack_bound(T_MAIN, N_A3C, spec.obs_dim,
                                              spec.act_dim)),
     }
-    fb, fs = FLASH_SHAPES[0]
-    fq, fk, fv = flash_inputs(fb, fs, FH, FKH, FHD, gen, dev, bf)
-    ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_t = {}
+    for fb, fs in FLASH_TIMED:
+        fq, fk, fv = flash_inputs(fb, fs, FH, FKH, FHD, gen, dev, bf)
+        ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
+        flash_t[(fb, fs)] = (
+            lambda fq=fq, fk=fk, fv=fv: ops.flash_attention(fq, fk, fv),
+            lambda fq=fq, fk=fk, fv=fv: ref.attention_ref(fq, fk, fv),
+            lambda ft=ft: sdpa(*ft, is_causal=True, enable_gqa=True),
+            flash_bound(fb, fs, FH, FKH, FHD, 2), PEAK_BF16)
     timings["paged_attention"] = (
         lambda: ops.paged_attention(*paged_main),
         lambda: ref.paged_attention_ref(*paged_main), None,
         paged_bound(paged_main), PEAK_BF16)
-    timings["flash_attention"] = (
-        lambda: ops.flash_attention(fq, fk, fv),
-        lambda: ref.attention_ref(fq, fk, fv),
-        lambda: sdpa(*ft, is_causal=True, enable_gqa=True),
-        flash_bound(fb, fs, FH, FKH, FHD, 2), PEAK_BF16)
+    timings["flash_attention"] = flash_t[FLASH_TIMED[0]]
     (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
     timings["mlstm_chunkwise"] = (
         lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
         lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
         mlstm_bound(*shape[:4], mc))
-    for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
+    def timed(kern, plain, lib, nbytes, nops, *peak):
         b_ms, b_by = bound_ms(nbytes, nops, *peak)
         # plain, kernel, kernel, plain: report the mean of each pair
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
-        rows.append({
-            "name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": (k1 + k2) / 2,
-            "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib) if lib else None,
-            "bytes": nbytes, "ops": nops,
-            "launches_by_path": {p: la[name] for p, la in by_path.items()}})
-        print(f"[time] {name}: kernel {rows[-1]['ms']:.4f} ms, plain "
-              f"{rows[-1]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), library {rows[-1]['library_ms']} ms")
+        return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib) if lib else None,
+                "bytes": nbytes, "ops": nops}
+
+    for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
+        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+               "replaces": KERNELS[name][1], "launches": launches[name],
+               "max_abs_err": errs[name]}
+        # a call can be host-bound: where there is a library call, the
+        # device time of the kernel and of the call's kernels compares the
+        # two (printed; in flash's row, in its ``shapes``)
+        extra = {}
+        if name == "flash_attention":
+            # every timed shape, each in its own turns; the row's own
+            # numbers are phase 8's dispatch, the first
+            row["shapes"] = []
+            for (fb, fs), (k_, p_, l_, (nb, no), *pk) in flash_t.items():
+                row["shapes"].append({"B": fb, "S": fs,
+                                      **timed(k_, p_, l_, nb, no, *pk),
+                                      "device_ms": device_ms(k_),
+                                      "library_device_ms": device_ms(l_)})
+            row.update({k: v for k, v in row["shapes"][0].items()
+                        if k not in ("B", "S", "device_ms",
+                                     "library_device_ms")})
+        else:
+            row.update(timed(kern, plain, lib, nbytes, nops, *peak))
+            if lib:
+                extra = {"device_ms": device_ms(kern),
+                         "library_device_ms": device_ms(lib)}
+        row["launches_by_path"] = {p: la[name] for p, la in by_path.items()}
+        rows.append(row)
+        for sh in row.get("shapes", [{**row, **extra}]):
+            at = f" B={sh['B']} S={sh['S']}" if "B" in sh else ""
+            dv = (f", device time (profiler) kernel {sh['device_ms']} ms, "
+                  f"library {sh['library_device_ms']} ms"
+                  if "device_ms" in sh else "")
+            print(f"[time] {name}{at}: kernel {sh['ms']:.4f} ms, plain "
+                  f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
+                  f"({sh['bound_by']}), library {sh['library_ms']} ms{dv}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

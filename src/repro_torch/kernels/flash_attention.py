@@ -3,7 +3,9 @@
 :func:`launch` replaces ``repro/kernels/flash_attention.py::
 flash_attention``: blocked online-softmax attention with GQA, an
 index-based causal / sliding-window mask (query i and key j at positions i
-and j) and a logit softcap.  Call it through ``ops.flash_attention``.
+and j) and a logit softcap.  The library routes by dtype: bf16 runs the
+tensor-core kernel, f32 the fp32 kernel.  Call it through
+``ops.flash_attention``.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 (``csrc/fused_policy_mlp.cu``).
 
 Replaces ``repro/kernels/fused_policy_mlp.py::fused_policy_mlp``: the tanh
-MLP trunk, every layer in one launch.  Call it through ``ops.policy_mlp``.
+MLP trunk, every layer in one launch, on the tensor cores at f32 accuracy
+(3xTF32), after a small launch that splits the weights into TF32 parts laid
+out as the kernel's MMAs read them, in a scratch buffer this wrapper
+allocates.  Call it through ``ops.policy_mlp``.
 """
 from __future__ import annotations
 
@@ -20,9 +23,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _fn():
     f = _build.load("fused_policy_mlp").fused_policy_mlp_launch
-    f.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P]
+    f.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _P]
     f.restype = _I
     return f
+
+
+def _scratch_floats(dims) -> int:
+    """Floats of split-weight scratch for a trunk of these widths: each
+    layer's hi and lo parts, din padded to 8 and dout to 64."""
+    return sum(-(-a // 8) * -(-b // 64) * 64 * 16
+               for a, b in zip(dims, dims[1:]))
 
 
 def _check(x, shape, name):
@@ -46,10 +56,13 @@ def launch(x, weights, biases):
         _check(w, (dims[i], dims[i + 1]), f"weights[{i}]")
         _check(b, (dims[i + 1],), f"biases[{i}]")
     out = torch.empty((N, dims[-1]), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((_scratch_floats(dims),), dtype=torch.float32,
+                          device=x.device)
     wp = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
     bp = (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
     dp = (ctypes.c_int * (L + 1))(*dims)
     err = _fn()(x.data_ptr(), out.data_ptr(), N, wp, bp, dp, L,
+                scratch.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"policy_mlp kernel launch failed: CUDA error "

@@ -1,4 +1,5 @@
-"""Small shared utilities: device resolution, pytree helpers, init."""
+"""Small shared utilities: device resolution, pytree helpers, init, the
+bf16 accuracy gate."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +42,20 @@ def lecun_init(gen: torch.Generator, shape, fan_in=None):
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * (1.0 / (fan_in or shape[0])) \
         ** 0.5
+
+
+# bf16 outputs are held to one bf16 ulp of each element's own magnitude,
+# plus BF16_ATOL for elements near 0 whose ulp is below the f32 sums'
+# rounding
+BF16_ATOL = 2.0 ** -14
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| over one bf16 ulp of ``want``'s own element
+    (2^(e-7) for |want| in [2^e, 2^(e+1))) plus ``BF16_ATOL``: at most 1
+    passes the bf16 check."""
+    w = want.float()
+    _, e = torch.frexp(w)                 # |w| = m 2^e, m in [0.5, 1)
+    ulp = torch.where(w != 0, torch.exp2((e - 8).float()),
+                      torch.zeros_like(w))
+    return float(((got.float() - w).abs() / (ulp + BF16_ATOL)).max())
