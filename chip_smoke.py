@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's four paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, and the paged serving
-engine at internlm2-1.8b's and at xlstm-1.3b's full width.
+engine at internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width.
 
     python3 chip_smoke.py
 
@@ -10,11 +10,11 @@ each asserting, in order:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (all sources in
    parallel) and print the build time, nvcc's register/spill report and
-   the card's name and power limit; for the two tensor-core kernels (the
-   bf16 flash kernel and the policy trunk) count the tensor-core
-   instructions (``HGMMA``/``HMMA``) in ``cuobjdump -sass`` of the built
-   library, and assert that there are some and that nvcc reports no
-   spills;
+   the card's name and power limit; for the tensor-core kernels (the
+   bf16 flash kernel, the policy trunk and the mLSTM kernel's three
+   3xTF32 launches) count the tensor-core instructions
+   (``HGMMA``/``HMMA``) in ``cuobjdump -sass`` of the built library, and
+   assert that each has some and that nvcc reports no spills;
 2. hold each of the eight kernels against its plain PyTorch version on the
    card at its path's shapes (ShadowHand, N = 16384, a share of envs
    forced to reset; the env megakernel without and with ring writes; GAE
@@ -22,20 +22,27 @@ each asserting, in order:
    256; the ring pack of one A3C push, T = 16, N = 8192, slot 1 of 2, the
    other slot a sentinel, bit-exact; paged decode attention in bf16 at
    internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
-   128, 8-token pages, 1024 positions; flash attention in bf16 at the
-   prefill shapes of phase 8 and at the launcher's eight 512-token
-   prompts; chunkwise mLSTM at phase 10's shapes, B = 4, 4 heads,
-   S = 512, dh 512, chunk 256 from a zero state, and B = 1,
-   S = 256 from a non-zero state, h and the final (C, n, m) each within
+   128, 8-token pages, 1024 positions, and at phase 11's, B = 4, 32 q
+   heads on 8 kv heads, hd 160, positions 543 and 159 (8 splits, as in
+   the run); flash attention in bf16 at the prefill shapes of phase 8, at
+   the launcher's eight 512-token prompts and at phase 11's two
+   dispatches, 2 x 512 and 2 x 128 at stablelm-12b's heads; paged decode
+   calls queued back to back at B = 8, 1 and 4 (4, 32 and 8 splits) and
+   two at once on two streams; chunkwise mLSTM at phase 10's shapes,
+   B = 4, 4 heads, S = 512, dh 512, chunk 256 from a zero state, and
+   B = 1, S = 256 from a non-zero state, h and the final (C, n, m) each within
    1e-4 of the plain output's largest magnitude) and at ragged shapes
    (every Table-6 env and trunk width, GAE and the n-step scan at T = 5,
    the pack at N = 999 with a version tensor; both attention kernels in
    f32 at hd 64 with 16-token pages, unmapped pages, idle rows, a window
    and a softcap, flash also in bf16 at those ragged shapes and, in f32
    and bf16, causal at S = 200 with window 37, where later blocks skip
-   whole key tiles below the window; mLSTM at dh
-   64, chunk 16, S = 48 and S = 1 from a non-zero state with strongly
-   negative log_f and large log_i);
+   whole key tiles below the window; both attention kernels at the head
+   dims 80 (G 1), 112 (G 2) and 160 (G 4), in f32 and bf16 under the
+   same gates: flash causal, bidirectional with a window and softcap, and
+   causal at S = 200 with window 37, paged decode with unmapped pages,
+   empty slots and idle rows; mLSTM at dh 64, chunk 16, S = 48 and S = 1
+   from a non-zero state with strongly negative log_f and large log_i);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
    permutations;
@@ -79,14 +86,26 @@ each asserting, in order:
    a mLSTM block) per prefill dispatch and per chunk and none in decode
    steps, and prints prefill and decode tok/s, peak device memory and
    the ``oracle_generate`` match count of two requests;
-11. time each kernel, its plain version and, where one PyTorch call
+11. drive stablelm-12b serving (hd 160 through both attention kernels): a
+   paged ``ServeEngine`` at full width in bf16 (d 5120, 32 q heads on 8
+   kv heads, random weights from seed 0), the depth cut to 8 of its 40
+   layers to keep the phase short, 4 slots, ``max_seq`` 1024, whole-prompt
+   prefill, serving two 512-token and two 128-token prompts, 32 greedy
+   tokens each, with the launch counters set to 0 just before and read
+   just after; it asserts one paged-decode launch per layer per decode
+   step and one flash launch per layer per whole-prompt dispatch, and
+   prints prefill and decode tok/s and the ``oracle_generate`` match
+   count of two requests (printed, not asserted, as in phase 8);
+12. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (flash at
-   phase 8's B = 3 x 128 dispatch and at the launcher's B = 8 x 512, in
-   the row's ``shapes`` list; where there is such a call, also the
-   device time of the kernel and of the call under ``torch.profiler``,
-   printed, and for flash in ``shapes``; the trunk's bound is
-   its three TF32 passes at the TF32 tensor-core peak), and print one
-   ``{"kernels": [...]}`` line.
+   phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512 and at
+   phase 11's stablelm-12b B = 2 x 512, hd 160, in the row's ``shapes``
+   list), and the device time of every kernel (and of the library call,
+   where there is one) under ``torch.profiler``, since small calls are
+   host-bound, by launched kernel where a call launches more than one (a
+   profile that sees no kernel is taken again, with a warning line); the
+   trunk's and the mLSTM kernel's bounds are their three TF32 passes at
+   the TF32 tensor-core peak; print one ``{"kernels": [...]}`` line.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -98,6 +117,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,10 +136,17 @@ N_PACK_RAGGED = 999      # s*N*211 not a multiple of 4: unaligned runs
 # launcher's (``launch/serve.py --full --batch 8 --prompt-len 512``)
 DECODE_POS = [574, 574, 574, 574, 190, 190, 190, 958]
 FLASH_SHAPES = [(3, 128), (4, 512), (8, 512)]
-FLASH_TIMED = [(3, 128), (8, 512)]
+# timed flash shapes (B, S, H, KH, hd): phase 8's dispatch and the
+# launcher's at internlm2-1.8b's heads, and phase 11's two 512-token
+# prompts at stablelm-12b's (hd 160, run at the padded width 192)
+FLASH_TIMED = [(3, 128, 16, 8, 128), (8, 512, 16, 8, 128),
+               (2, 512, 32, 8, 160)]
 # kernels that must reach the tensor cores: (library stem, kernel name)
 TENSOR_CORE = [("flash_attention", "flash_attention_mma_kernel"),
-               ("fused_policy_mlp", "fused_policy_mlp_kernel")]
+               ("fused_policy_mlp", "fused_policy_mlp_kernel"),
+               ("mlstm_chunkwise", "mlstm_scores_kernel"),
+               ("mlstm_chunkwise", "mlstm_cstate_kernel"),
+               ("mlstm_chunkwise", "mlstm_out_kernel")]
 A3C_ROUNDS = 3
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
@@ -131,6 +158,17 @@ ARCH = "internlm2-1.8b"
 # bf16 attention kernels: each output element within one bf16 ulp of its
 # own magnitude, plus 2^-14 (``repro_torch.utils.bf16_ulps``); f32 ones 1e-4
 XARCH = "xlstm-1.3b"
+# the head dims the reference serves beyond 64 and 128, as (hd, H, KH):
+# hubert-xlarge's 80 (G 1), zamba2-7b's 112 (here at G 2) and
+# stablelm-12b's 160 (G 4)
+HEAD_DIMS = [(80, 16, 16), (112, 16, 8), (160, 32, 8)]
+SARCH = "stablelm-12b"
+SLAYERS = 8              # of stablelm-12b's 40, to keep the phase short
+# phase 11's kernel shapes: decode positions of its 4 slots near the end
+# of the run (two 512 + 32, two 128 + 32 tokens) and its two whole-prompt
+# dispatches (B, S)
+SDECODE_POS = [543, 543, 159, 159]
+SFLASH_SHAPES = [(2, 512), (2, 128)]
 # mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
 # dispatch and of the 768-token prompt's second chunk
 MLSTM_MAIN = [(4, 4, 512, 512, 256, True), (1, 4, 256, 512, 256, False)]
@@ -176,7 +214,6 @@ def sass_report(build_dir, logs):
     kernel in ``cuobjdump -sass`` of the built library, and nvcc's spill
     lines for it (every instantiation).  Asserts that it has some and that
     nvcc reports no spills."""
-    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = {}
@@ -204,26 +241,46 @@ def sass_report(build_dir, logs):
                                           "instruction in its SASS")
         assert all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
                              ln) for ln in spills), (stem, spills)
-        res[stem] = counts
+        res[kernel] = counts
     return res
 
 
-def device_ms(fn, reps=20, warmup=3):
-    """Mean device time of one call of ``fn``: the durations of the
-    kernels it launched, under ``torch.profiler``, summed over ``reps``
-    calls and divided by ``reps``; None if the profiler saw no kernel."""
+def device_times(fn, reps=20, warmup=3):
+    """Mean device time of one call of ``fn`` by launched kernel: each
+    kernel's durations under ``torch.profiler``, summed over ``reps``
+    calls and divided by ``reps``.  A profile that saw no kernel is taken
+    again, at most twice, with a warning line each time (the cause of such
+    empty profiles is not known); {} if all three were empty."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    us = {}
+    for attempt in range(3):
+        if attempt:
+            print(f"[warn] torch.profiler saw no kernel in profile "
+                  f"{attempt} of 3; taking it again")
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n = e.name.replace("(anonymous namespace)", "")
+                m = re.search(r"(\w+)(<[^(]*>)?\(", n)
+                name = m.group(1) if m else n[:60]
+                us[name] = us.get(name, 0.0) + (e.time_range.end
+                                                - e.time_range.start)
+        if us:
+            break
+    return {k: v / reps / 1e3 for k, v in us.items()}
+
+
+def device_ms(fn):
+    """The sum of :func:`device_times`; None if the profiler saw no
+    kernel."""
+    return sum(device_times(fn).values()) or None
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -579,6 +636,39 @@ def check_paged(args, tol, **kw):
     return held(got, want, tol, "paged_attention")
 
 
+def check_paged_in_turns(gen, dev):
+    """Paged decode calls queued back to back with no sync between them, at
+    B and split counts that differ (8 rows then 1 row then 4, bf16), and
+    two calls of one shape on two streams at once: each output against its
+    plain version.  The wrapper's tickets cross calls; this holds them."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import num_splits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [paged_inputs(B, 16, 8, 128, 8, 128, pos, gen, dev,
+                          torch.bfloat16)
+             for B, pos in ((8, DECODE_POS), (1, [958]),
+                            (4, [574, -1, 7, 300]), (4, [300, 12, -1, 900]))]
+    splits = [num_splits(a[0].shape[0], 8, 8, 128, sms) for a in cases]
+    assert len(set(splits)) > 1, splits
+    torch.cuda.synchronize()
+    outs = [ops.paged_attention(*a) for a in cases[:3]]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        outs.append(ops.paged_attention(*cases[3]))
+    outs.append(ops.paged_attention(*cases[2]))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for got, a in zip(outs, cases[:3] + [cases[3], cases[2]]):
+        want = ref.paged_attention_ref(*a)
+        assert bool((got[a[5] < 0] == 0).all()), "idle row not exactly 0"
+        worst = max(worst, held(got, want, 0.0, "paged_attention")[1])
+    return (f"[check] paged_attention in turns: B = 8, 1, 4 back to back "
+            f"(splits {splits[:3]}), then B = 4 on a second stream beside B "
+            f"= 4 on the first: {worst:.3g} of one bf16 ulp of each element "
+            "(tol 1)")
+
+
 def held(got, want, tol, name):
     """f32: max |got - want| <= tol; bf16: every element within one bf16
     ulp of its own magnitude.  Returns (max_abs_err, ulps or None)."""
@@ -604,6 +694,45 @@ def check_flash(args, tol, **kw):
     torch.cuda.synchronize()
     assert got.dtype == args[0].dtype and bool(got.isfinite().all())
     return held(got, want, tol, "flash_attention")
+
+
+def check_head_dims(gen, dev):
+    """Both attention kernels at each of ``HEAD_DIMS``, in f32 (1e-4) and
+    bf16 (one bf16 ulp of each element): flash causal at S = 77 (B = 2),
+    bidirectional at S = 45 with a window and a softcap, and causal at
+    S = 200 with window 37 (blocks skip whole key tiles); paged decode
+    over 16-token pages with unmapped pages, empty slots and idle rows,
+    without and with a window and softcap.  Returns one line a head dim."""
+    lines = []
+    for hd, H, KH in HEAD_DIMS:
+        res = {}
+        for dt, tol in ((torch.float32, TOL["flash_attention"]),
+                        (torch.bfloat16, 0.0)):
+            worst = 0.0
+            for B, S, causal, kw in ((2, 77, True, {}),
+                                     (1, 45, False, dict(window=19,
+                                                         softcap=5.0)),
+                                     (1, 200, True, dict(window=37))):
+                e, u = check_flash(flash_inputs(B, S, H, KH, hd, gen, dev, dt),
+                                   tol, causal=causal, **kw)
+                worst = max(worst, e if u is None else u)
+            res[f"flash {str(dt)[6:]}"] = worst
+            worst = 0.0
+            for kw in (dict(), dict(window=37, softcap=5.0)):
+                a = paged_inputs(5, H, KH, hd, 16, 9, [130, -1, 17, 0, 143],
+                                 gen, dev, dt, holes=0.2, unmapped=0.25)
+                e, u = check_paged(a, TOL["paged_attention"], **kw)
+                worst = max(worst, e if u is None else u)
+            res[f"paged {str(dt)[6:]}"] = worst
+        lines.append(
+            f"[check] hd {hd} G {H // KH}: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in res.items())
+            + " (f32 max_abs_err, tol 1e-4; bf16 in bf16 ulps of each "
+            "element, tol 1; flash causal S=77, bidirectional S=45 window "
+            "19 softcap 5, causal S=200 window 37; paged page 16, unmapped "
+            "pages, empty slots, idle rows, without and with window 37 "
+            "softcap 5)")
+    return lines
 
 
 # -------------------------------------------------------------- mLSTM ----
@@ -912,6 +1041,78 @@ def run_serve(dev):
     return launches, stats, eng
 
 
+def run_stablelm(dev):
+    """stablelm-12b at full width in bf16 (d 5120, 32 q heads on 8 kv
+    heads, hd 160), its depth cut to SLAYERS of 40 layers, random weights
+    from seed 0: two 512-token and two 128-token prompts, 32 greedy tokens
+    each, through a paged ``ServeEngine`` with whole-prompt prefill, the
+    launch counters set to 0 just before and read just after."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    full = get_config(SARCH)
+    cfg = full.replace(num_layers=SLAYERS)
+    assert cfg.resolved_head_dim == 160 and full.num_layers == 40
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, T.init_model(0, cfg, dev), max_slots=4,
+                      max_seq=1024, device=dev, chunk_prefill=512)
+    # warm-up: cuBLAS handles and bf16 GEMM heuristics, one small request
+    eng.serve([Request(tokens=list(range(1, 40)), max_new_tokens=3)])
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=32) for n in (512, 512, 128, 128)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = SLAYERS * tel.total_decode_steps
+    want["flash_attention"] = SLAYERS * eng.prefill_dispatches
+    assert launches == want, (launches, want)
+    assert eng.prefill_dispatches >= 1 and tel.total_decode_steps >= 31
+    assert len(done) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == 32 for c in done)
+    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
+    gen = tel.total_tokens - len(reqs)
+    stats = {
+        "layers": f"{SLAYERS} of {full.num_layers}",
+        "setup_s": setup_s, "wall_s": wall,
+        "prompt_tokens": tel.total_prompt_tokens,
+        "generated_tokens": tel.total_tokens,
+        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
+        "decode_tok_s": gen / tel.total_decode_s,
+        "decode_steps": tel.total_decode_steps,
+        "decode_ms_per_step": 1e3 * tel.total_decode_s
+        / tel.total_decode_steps,
+        "prefill_dispatches": eng.prefill_dispatches,
+        "end_to_end_tok_s": tel.total_tokens / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    # oracle agreement (printed, not asserted: bf16 GEMMs at B = 1 and
+    # B = 4 round differently)
+    by_rid = {c.rid: c.tokens for c in done}
+    agree = []
+    for r in (reqs[0], reqs[2]):
+        orc = eng.oracle_generate(r)
+        got = by_rid[r.rid]
+        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
+                 len(orc))
+        agree.append({"prompt": len(r.tokens), "matching": n,
+                      "of": len(orc)})
+    stats["oracle"] = agree
+    return launches, stats
+
+
 def paged_bound(args):
     """Bytes and operations of one paged decode call on these inputs:
     q and out, the table and positions, and each row's mapped pages that
@@ -1012,11 +1213,11 @@ def main() -> int:
     print(f"[build] {secs:.1f} s (0 = already built) in {_build.build_dir()}")
     for stem, log in _build.build_logs().items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {stem}: {line.strip()}")
-    for stem, counts in sass_report(_build.build_dir(),
-                                    _build.build_logs()).items():
-        print(f"[build] {stem}: tensor-core instructions in cuobjdump -sass "
+    for kernel, counts in sass_report(_build.build_dir(),
+                                      _build.build_logs()).items():
+        print(f"[build] {kernel}: tensor-core instructions in cuobjdump -sass "
               f"{counts}, no spills")
 
     # 2. kernel against plain version -------------------------------------
@@ -1042,8 +1243,27 @@ def main() -> int:
         paged_main, 0.0)
     flash = [check_flash(flash_inputs(b, sq, FH, FKH, FHD, gen, dev, bf),
                          0.0) for b, sq in FLASH_SHAPES]
+    # phase 11's shapes: stablelm-12b's 32 q heads on 8 kv heads at hd 160
+    # (flash at the padded width 192; paged decode at 4 rows and the
+    # engine's 8-token pages and 128-page table, so the same splits)
+    sc = get_config(SARCH)
+    SH, SKH, SHD = sc.num_heads, sc.num_kv_heads, sc.resolved_head_dim
+    paged_s = check_paged(paged_inputs(4, SH, SKH, SHD, 8, 128, SDECODE_POS,
+                                       gen, dev, bf), 0.0)
+    flash_s = [check_flash(flash_inputs(b, sq, SH, SKH, SHD, gen, dev, bf),
+                           0.0) for b, sq in SFLASH_SHAPES]
+    print(f"[check] {SARCH} main-path shapes (32 q on 8 kv heads, hd 160, "
+          f"bf16): paged_attention B=4 positions {SDECODE_POS} "
+          f"max_abs_err={paged_s[0]:.3g} ({paged_s[1]:.3g} of one bf16 ulp "
+          f"of each element, tol 1); flash_attention causal " + ", ".join(
+              f"B={b} S={sq} max_abs_err={e:.3g} ({u:.3g} ulp)"
+              for (b, sq), (e, u) in zip(SFLASH_SHAPES, flash_s)))
+    errs["paged_attention"] = max(errs["paged_attention"], paged_s[0])
+    ulps["paged_attention"] = max(ulps["paged_attention"], paged_s[1])
+    flash += flash_s
     errs["flash_attention"] = max(e for e, _ in flash)
     ulps["flash_attention"] = max(u for _, u in flash)
+    print(check_paged_in_turns(gen, dev))
     mlstm_main = [(mlstm_inputs(*shape[:4], zero, gen, dev), chunk)
                   for *shape, chunk, zero in MLSTM_MAIN]
     errs["mlstm_chunkwise"] = max(check_mlstm(a, c) for a, c in mlstm_main)
@@ -1089,6 +1309,8 @@ def main() -> int:
                        f"{u:.3g} of one bf16 ulp")
         print(f"[check] flash_attention causal S=200 {kw}: "
               f"{'; '.join(res)} (tol 1e-4; 1)")
+    for line in check_head_dims(gen, dev):
+        print(line)
     for name, sp in SPECS.items():
         e1 = check_env(name, N_RAGGED, gen, dev, True)
         e2 = check_trunk(sp.policy_dims[:-1], N_RAGGED, gen, dev)
@@ -1201,9 +1423,21 @@ def main() -> int:
           f"decode {stats['decode_tok_s']:,.1f} tok/s "
           f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows), "
           f"peak {stats['peak_mem_gb']:.2f} GB")
+
+    # 11. stablelm-12b serving: hd 160 through both attention kernels -----
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats = run_stablelm(dev)
+    by_path["serve_stablelm"] = la
+    print(f"[serve_stablelm] {SARCH} full width bf16 (d 5120, 32 q on 8 kv "
+          f"heads, hd 160; depth cut to {SLAYERS} of 40 layers), 4 slots, "
+          f"max_seq 1024, whole-prompt prefill: launches {la}, stats "
+          f"{json.dumps(stats)}")
+    print(f"[serve_stablelm] prefill {stats['prefill_tok_s']:,.1f} tok/s, "
+          f"decode {stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows)")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
-    # 11. timings -----------------------------------------------------------
+    # 12. timings -----------------------------------------------------------
     _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
     r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
     x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)
@@ -1247,24 +1481,24 @@ def main() -> int:
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_t = {}
-    for fb, fs in FLASH_TIMED:
-        fq, fk, fv = flash_inputs(fb, fs, FH, FKH, FHD, gen, dev, bf)
+    for fb, fs, fh, fkh, fhd in FLASH_TIMED:
+        fq, fk, fv = flash_inputs(fb, fs, fh, fkh, fhd, gen, dev, bf)
         ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
-        flash_t[(fb, fs)] = (
+        flash_t[(fb, fs, fhd)] = (
             lambda fq=fq, fk=fk, fv=fv: ops.flash_attention(fq, fk, fv),
             lambda fq=fq, fk=fk, fv=fv: ref.attention_ref(fq, fk, fv),
             lambda ft=ft: sdpa(*ft, is_causal=True, enable_gqa=True),
-            flash_bound(fb, fs, FH, FKH, FHD, 2), PEAK_BF16)
+            flash_bound(fb, fs, fh, fkh, fhd, 2), PEAK_BF16)
     timings["paged_attention"] = (
         lambda: ops.paged_attention(*paged_main),
         lambda: ref.paged_attention_ref(*paged_main), None,
         paged_bound(paged_main), PEAK_BF16)
-    timings["flash_attention"] = flash_t[FLASH_TIMED[0]]
+    timings["flash_attention"] = flash_t[(3, 128, FHD)]
     (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
     timings["mlstm_chunkwise"] = (
         lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
         lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
-        mlstm_bound(*shape[:4], mc))
+        mlstm_bound(*shape[:4], mc), PEAK_3XTF32)
     def timed(kern, plain, lib, nbytes, nops, *peak):
         b_ms, b_by = bound_ms(nbytes, nops, *peak)
         # plain, kernel, kernel, plain: report the mean of each pair
@@ -1279,34 +1513,38 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
                "replaces": KERNELS[name][1], "launches": launches[name],
                "max_abs_err": errs[name]}
-        # a call can be host-bound: where there is a library call, the
-        # device time of the kernel and of the call's kernels compares the
-        # two (printed; in flash's row, in its ``shapes``)
+        # a call can be host-bound: the device time of the kernel (and of
+        # the library call's kernels, where there is one) under the
+        # profiler is in the row (in flash's, in its ``shapes``)
         extra = {}
         if name == "flash_attention":
             # every timed shape, each in its own turns; the row's own
             # numbers are phase 8's dispatch, the first
             row["shapes"] = []
-            for (fb, fs), (k_, p_, l_, (nb, no), *pk) in flash_t.items():
-                row["shapes"].append({"B": fb, "S": fs,
+            for (fb, fs, fhd), (k_, p_, l_, (nb, no), *pk) in \
+                    flash_t.items():
+                row["shapes"].append({"B": fb, "S": fs, "hd": fhd,
                                       **timed(k_, p_, l_, nb, no, *pk),
                                       "device_ms": device_ms(k_),
                                       "library_device_ms": device_ms(l_)})
             row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in ("B", "S", "device_ms",
-                                     "library_device_ms")})
+                        if k not in ("B", "S", "hd")})
         else:
             row.update(timed(kern, plain, lib, nbytes, nops, *peak))
-            if lib:
-                extra = {"device_ms": device_ms(kern),
-                         "library_device_ms": device_ms(lib)}
+            by_kernel = device_times(kern)
+            extra = {"device_ms": sum(by_kernel.values()) or None,
+                     "library_device_ms": device_ms(lib) if lib else None}
+            row.update(extra)
+            if len(by_kernel) > 1:
+                print(f"[time] {name}: device time by launched kernel "
+                      f"{json.dumps(by_kernel)}")
         row["launches_by_path"] = {p: la[name] for p, la in by_path.items()}
         rows.append(row)
         for sh in row.get("shapes", [{**row, **extra}]):
-            at = f" B={sh['B']} S={sh['S']}" if "B" in sh else ""
+            at = (f" B={sh['B']} S={sh['S']} hd={sh['hd']}" if "B" in sh
+                  else "")
             dv = (f", device time (profiler) kernel {sh['device_ms']} ms, "
-                  f"library {sh['library_device_ms']} ms"
-                  if "device_ms" in sh else "")
+                  f"library {sh['library_device_ms']} ms")
             print(f"[time] {name}{at}: kernel {sh['ms']:.4f} ms, plain "
                   f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
                   f"({sh['bound_by']}), library {sh['library_ms']} ms{dv}")

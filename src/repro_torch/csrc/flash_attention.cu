@@ -16,6 +16,14 @@
 //
 // bf16: Hopper's tensor cores (flash_attention_mma_kernel), one
 // warpgroup (4 warps, 64 rows) a block.
+//  * The kernel runs at a padded width HDP, the next multiple of 64 at or
+//    above the head dim (hd 64 -> 64; 80, 112, 128 -> 128; 160 -> 192):
+//    the K/V tensor maps keep the true hd as their innermost dimension,
+//    so TMA fills the box columns past hd with zeros, Q's padding chunks
+//    load as zeros, and the epilogue stores only the first hd columns.
+//    Zeros add nothing to Q K^T, and V's zero columns give output columns
+//    that are never stored; the scale comes in from the true hd.  The
+//    padding costs MMA work: 1.6x at hd 80, 1.14x at 112, 1.2x at 160.
 //  * Rows of a block are (query, q head) pairs of one kv head: row R of
 //    the (b, kv head) stream is query R / G, q head kh * G + R % G, so the
 //    G heads that share a kv head read each K/V tile once, and the rows of
@@ -104,6 +112,12 @@ template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
                                         const uint32_t (&p)[4], uint64_t dv);
 template <>
+__device__ __forceinline__ void pv_step<192>(float (&o)[96],
+                                             const uint32_t (&p)[4],
+                                             uint64_t dv) {
+  wg::wgmma_m64n192k16_rs_mn(o, p, dv);
+}
+template <>
 __device__ __forceinline__ void pv_step<128>(float (&o)[64],
                                              const uint32_t (&p)[4],
                                              uint64_t dv) {
@@ -125,11 +139,13 @@ constexpr int smem_bytes() {
   return (BM + 2 * STAGES * BK) * HD * 2 + 2 * STAGES * 8;
 }
 
+// HD is the padded width HDP; hd (a multiple of 8, HD - 64 < hd <= HD)
+// the true one
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_mma_kernel(
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __nv_bfloat16* __restrict__ q,
-    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KH,
+    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KH, int hd,
     int causal, int window, float scale, float cap) {
   constexpr int KS = HD / 16;          // k-steps of Q K^T
   constexpr int NT = BK / 8;           // 8-key tiles of S
@@ -160,7 +176,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_mma_kernel(
   // row R of this (b, kh) is query R / G, q head kh * G + R % G: the G
   // rows of one query are contiguous in q and out
   auto row_off = [&](int R) -> long long {
-    return ((long long)(b * Sq + R / G) * H + kh * G + R % G) * HD;
+    return ((long long)(b * Sq + R / G) * H + kh * G + R % G) * hd;
   };
   // query positions of the thread's rows g and g + 8, and the warp's
   const int qi[2] = {(Rw + g) / G, (Rw + g + 8) / G};
@@ -175,7 +191,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_mma_kernel(
   const int kv_lo = lo > 0 ? (int)(lo / BK) * BK : 0;
   const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
 
-  // tile i's K and V by TMA, in 64-dim boxes; keys past Skv read as 0
+  // tile i's K and V by TMA, in 64-dim boxes; keys past Skv and columns
+  // past hd read as 0
   auto load_tile = [&](int i) {
     const int st = i % STAGES, j0 = kv_lo + i * BK;
     wg::mbar_expect(&full[st], 2 * TILE);
@@ -195,10 +212,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_mma_kernel(
     wg::mbar_init_fence();
     for (int i = 0; i < STAGES && i < ntiles; ++i) load_tile(i);
   }
-  // the Q tile, rows past the stream zero-filled
+  // the Q tile, rows past the stream and columns past hd zero-filled
   for (int c = tid; c < BM * CH; c += THREADS) {
     const int r = c / CH, ch = c % CH, R = R0 + r;
-    const bool ok = R < rows;
+    const bool ok = R < rows && ch * 8 < hd;
     cp_async16(Qs + sw128<BM>(r, ch), q + (ok ? row_off(R) + ch * 8 : 0), ok);
   }
   cp_commit();
@@ -346,8 +363,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_mma_kernel(
     __nv_bfloat16* orow = out + row_off(R);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      if (j * 8 < hd)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+            pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
 }
 
@@ -371,16 +389,17 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// k or v (B, Skv, KH, HD) bf16 as the 4-D tensor {HD, KH, Skv, B}, boxes
+// k or v (B, Skv, KH, hd) bf16 as the 4-D tensor {hd, KH, Skv, B}, boxes
 // of 64 dims x 1 head x BK keys, 128-byte swizzled as the MMAs read them
+// (a box past hd reads zeros there)
 bool kv_map(CUtensorMap* map, const void* base, int B, int Skv, int KH,
-            int HD) {
+            int hd) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)KH, (cuuint64_t)Skv,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KH, (cuuint64_t)Skv,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)KH * HD * 2,
-                                 (cuuint64_t)Skv * KH * HD * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)KH * hd * 2,
+                                 (cuuint64_t)Skv * KH * hd * 2};
   const cuuint32_t box[4] = {64, 1, BK, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -392,7 +411,7 @@ bool kv_map(CUtensorMap* map, const void* base, int B, int Skv, int KH,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Skv, int H, int KH, int causal, int window,
+                int Sq, int Skv, int H, int KH, int hd, int causal, int window,
                 float scale, float cap, cudaStream_t s) {
   constexpr int smem = smem_bytes<HD>();
   auto kern = flash_attention_mma_kernel<HD>;
@@ -400,14 +419,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   const cudaError_t err = wg::allow_smem(kern, smem, sized);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tk, tv;
-  if (!kv_map(&tk, k, B, Skv, KH, HD) || !kv_map(&tv, v, B, Skv, KH, HD))
+  if (!kv_map(&tk, k, B, Skv, KH, hd) || !kv_map(&tv, v, B, Skv, KH, hd))
     return (int)cudaErrorInvalidValue;
   const int rows = Sq * (H / KH);
   const dim3 grid((rows + BM - 1) / BM, B * KH);
   kern<<<grid, THREADS, smem, s>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KH, causal, window, scale,
-      cap);
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KH, hd, causal, window,
+      scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -549,29 +568,36 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q (B, Sq, H, hd); k/v (B, Skv, KH, hd); out (B, Sq, H, hd); query i and
-// key j at positions i and j.  hd 64 or 128.  dtype 0 = f32 (the fp32
-// kernel), 1 = bf16 (the tensor-core kernel).  window 1 << 30 means none;
-// cap <= 0 means no softcap.  Returns a cudaError_t.
+// key j at positions i and j.  hd 64, 80, 112, 128 or 160.  dtype 0 = f32
+// (the fp32 kernel), 1 = bf16 (the tensor-core kernel, at the padded width
+// 64, 128 or 192).  window 1 << 30 means none; cap <= 0 means no softcap.
+// Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int H, int KH, int hd,
                                       int causal, int window, float scale,
                                       float cap, int dtype, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KH < 1 || H % KH != 0 || window < 1 ||
-      (hd != 64 && hd != 128))
+  if (B < 1 || Sq < 1 || Skv < 1 || KH < 1 || H % KH != 0 || window < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 128)
-    return launch_f32<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                           scale, cap, s);
-  if (dtype == 0)
-    return launch_f32<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                          scale, cap, s);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                            scale, cap, s);
-  if (dtype == 1)
-    return launch_bf16<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                           scale, cap, s);
+#define FA_ARGS q, k, v, out, B, Sq, Skv, H, KH
+#define FA_REST causal, window, scale, cap, s
+  if (dtype == 0) {
+    switch (hd) {
+      case 64: return launch_f32<64>(FA_ARGS, FA_REST);
+      case 80: return launch_f32<80>(FA_ARGS, FA_REST);
+      case 112: return launch_f32<112>(FA_ARGS, FA_REST);
+      case 128: return launch_f32<128>(FA_ARGS, FA_REST);
+      case 160: return launch_f32<160>(FA_ARGS, FA_REST);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 64: return launch_bf16<64>(FA_ARGS, hd, FA_REST);
+      case 80: case 112: case 128: return launch_bf16<128>(FA_ARGS, hd, FA_REST);
+      case 160: return launch_bf16<192>(FA_ARGS, hd, FA_REST);
+    }
+  }
+#undef FA_ARGS
+#undef FA_REST
   return (int)cudaErrorInvalidValue;
 }

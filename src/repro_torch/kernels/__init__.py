@@ -7,5 +7,7 @@
 #   fused_policy_mlp.py — whole Table-6 policy trunk in one launch
 #   channel_pack.py     — MCC ring buffers and the one-launch ring pack
 #   paged_decode.py     — one-token GQA attention read through a page table
+#                         (split-KV)
 #   flash_attention.py  — blocked online-softmax attention (prefill)
+#   mlstm_scan.py       — chunkwise mLSTM from a given state (xlstm prefill)
 from repro_torch.kernels import ops, ref  # noqa: F401

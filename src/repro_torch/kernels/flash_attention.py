@@ -18,6 +18,9 @@ from repro_torch.kernels import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BIG_WINDOW = 1 << 30
+# the head dims the kernels are built for (bf16 pads 80 and 112 to 128, and
+# 160 to 192, for the MMAs)
+HEAD_DIMS = (64, 80, 112, 128, 160)
 
 
 def _lib():
@@ -37,9 +40,9 @@ def launch(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     for x, shape, nm in ((q, (B, Sq, H, hd), "q"), (k, (B, Skv, KH, hd), "k"),
                          (v, (B, Skv, KH, hd), "v")):
         _build.check_tensor("flash_attention", nm, x, shape, dt)
-    if hd not in (64, 128) or H % KH:
+    if hd not in HEAD_DIMS or H % KH:
         raise ValueError(f"flash_attention: hd={hd}, H={H}, KH={KH} not "
-                         "supported (hd 64 or 128, H a multiple of KH)")
+                         f"supported (hd in {HEAD_DIMS}, H a multiple of KH)")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: operands must be 16-byte aligned")
     win = BIG_WINDOW if window is None else int(window)

@@ -35,6 +35,7 @@ from repro_torch.models.attention import (PagedKVCache, attention,
 from repro_torch.models.layers import (embed, init_embedding, init_linear,
                                        init_mlp, init_rmsnorm, linear, mlp,
                                        rms_norm, softcap, unembed)
+from repro_torch.utils import tree_leaves, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window" sentinel, as in the reference
 
@@ -85,10 +86,18 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
     return ssm.init_slstm(gen, cfg.d_model, cfg.num_heads)
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_stacked(make, n: int):
+    """``n`` draws of ``make()`` stacked leaf by leaf.  Each draw is copied
+    into the stack as it is made, so the n draws and their stack are never
+    all held at once (stablelm-12b's 40 f32 layers are 45 GiB)."""
+    out = None
+    for i in range(n):
+        one = make()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+        for dst, src in zip(tree_leaves(out), tree_leaves(one)):
+            dst[i].copy_(src)
+    return out
 
 
 def init_model(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
@@ -105,12 +114,12 @@ def init_model(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
         params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
     if cfg.block_pattern:
         params["super"] = {
-            f"{kind}_{i}": _stack([_init_block(gen, kind, cfg)
-                                   for _ in range(cfg.num_super)])
+            f"{kind}_{i}": _init_stacked(lambda: _init_block(gen, kind, cfg),
+                                         cfg.num_super)
             for i, kind in enumerate(cfg.block_pattern)}
     else:
-        params["layers"] = _stack([_init_attn_layer(gen, cfg)
-                                   for _ in range(cfg.num_layers)])
+        params["layers"] = _init_stacked(lambda: _init_attn_layer(gen, cfg),
+                                         cfg.num_layers)
     return params
 
 

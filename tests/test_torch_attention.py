@@ -78,9 +78,10 @@ def test_paged_write_and_gather_exact(rng):
             np.testing.assert_array_equal(a, b)
 
 
-def _both(jp, tp, x, pos, rows=slice(None), **kw):
+def _both(jp, tp, x, pos, rows=slice(None), heads=KW, **kw):
     """Outputs compared on batch ``rows``.  ``paged_kernel`` picks the
-    reference's paged decode route only; the port has one."""
+    reference's paged decode route only; the port has one.  ``heads``:
+    the layer's head counts and head dim."""
     jkw = dict(kw)
     kw.pop("paged_kernel", None)
     for k in ("cache", "page_table"):
@@ -88,9 +89,9 @@ def _both(jp, tp, x, pos, rows=slice(None), **kw):
             jkw[k] = kw[k][0]
             kw[k] = kw[k][1]
     jo, jc = JA.attention(jp, jnp.asarray(x), positions=jnp.asarray(pos),
-                          **KW, **jkw)
+                          **heads, **jkw)
     to, tc = TA.attention(tp, torch.as_tensor(x), positions=torch.as_tensor(
-        pos), **KW, **kw)
+        pos), **heads, **kw)
     np.testing.assert_allclose(to.numpy()[rows], np.asarray(jo)[rows],
                                atol=1e-5)
     return jc, tc
@@ -172,3 +173,35 @@ def test_chunked_attention_matches_reference(rng):
                                 True, 8, 2.0, HD ** -0.5, q_block=8,
                                 kv_block=5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_head_dim_160_prefill_then_paged_decode(rng):
+    """stablelm-12b's head dim, 160, at a small width (d 64, 4 q heads on 1
+    kv head): a no-cache causal prefill (the flash kernel's plain version),
+    then a paged prefill chunk and paged decode steps with an idle row (the
+    gather-decode kernel's plain version; the reference through its Pallas
+    kernel, interpret), each against the reference to 1e-5."""
+    d, hd = 64, 160
+    heads = dict(num_heads=4, num_kv_heads=1, head_dim=hd)
+    jp = JA.init_attention_params(jax.random.key(2), d, 4, 1, hd, False)
+    tp = interop.model_params(jax.tree.map(np.asarray, jp))
+    x = rng.normal(size=(B, 9, d)).astype(np.float32)
+    _both(jp, tp, x, np.arange(9, dtype=np.int32), heads=heads)
+    n = 16
+    kp = rng.normal(size=(n, P, 1, hd)).astype(np.float32)
+    vp = rng.normal(size=(n, P, 1, hd)).astype(np.float32)
+    sp = np.full((n, P), -1, np.int32)
+    table = np.full((B, M), -1, np.int32)
+    perm = rng.permutation(np.arange(1, n))
+    table[0], table[1, :4] = perm[:M], perm[M:M + 4]
+    jc, tc = _jpaged(kp, vp, sp), _tpaged(kp, vp, sp)
+    pt = (jnp.asarray(table), torch.as_tensor(table))
+    x = rng.normal(size=(B, 7, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(7, dtype=np.int32), (B, 7)).copy()
+    jc, tc = _both(jp, tp, x, pos, heads=heads, cache=(jc, tc),
+                   page_table=pt)
+    for t in range(7, 10):
+        x = rng.normal(size=(B, 1, d)).astype(np.float32)
+        jc, tc = _both(jp, tp, x, np.array([[t], [-1]], np.int32),
+                       heads=heads, cache=(jc, tc), page_table=pt,
+                       paged_kernel=True)

@@ -262,14 +262,14 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
 
 
 # ---------------------------------------------------------- attention ----
-def _paged_case(dtype=np.float32):
+def _paged_case(dtype=np.float32, hd=32):
     """Ragged paged inputs: B = 4 rows over an M = 5 page table of 4-slot
     pages.  Row 0 has an unmapped page in the middle and holes in its
     pages, row 1 maps two pages, row 2 is idle (position -1, nothing
     mapped), row 3 is full.  Mapped virtual page v holds positions
     [4v, 4v + 4) or -1, as the engine writes them; every other page
     (the trash page 0 included) holds random values that must not leak."""
-    B, H, KH, hd, P, M, N = 4, 4, 2, 32, 4, 5, 24
+    B, H, KH, P, M, N = 4, 4, 2, 4, 5, 24
     qpos = np.array([17, 6, -1, 19], np.int32)
     table = np.full((B, M), -1, np.int32)
     phys = iter(RNG.permutation(np.arange(1, N)))
@@ -309,6 +309,20 @@ def test_paged_attention_plain_matches_pallas_kernel(window, cap):
     assert np.isfinite(want).all()
 
 
+@pytest.mark.parametrize("hd", [80, 112, 160])
+def test_paged_attention_plain_matches_pallas_kernel_head_dims(hd):
+    """The same ragged paged case at the head dims the reference serves
+    beyond 64 and 128 (hubert-xlarge's 80, zamba2-7b's 112, stablelm-12b's
+    160), with a window and a softcap: atol 1e-5; the idle row exactly 0."""
+    args = _paged_case(hd=hd)
+    want = np.asarray(jops.paged_attention(
+        *map(jnp.asarray, args), window=9, softcap=3.0, interpret=True))
+    got = ops.paged_attention(*[torch.as_tensor(a) for a in args], window=9,
+                              softcap=3.0).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert (got[2] == 0.0).all() and np.isfinite(want).all()
+
+
 @pytest.mark.parametrize("causal,window,cap", [
     (True, None, None), (True, 7, None), (True, None, 1.5),
     (False, None, None), (False, 10, 2.5)])
@@ -328,6 +342,25 @@ def test_flash_attention_plain_matches_pallas_kernel(causal, window, cap):
         got = fn(*map(torch.as_tensor, (q, k, v)), causal=causal,
                  window=window, softcap=cap)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,G,causal", [(80, 1, False), (112, 2, True),
+                                         (160, 4, True)])
+def test_flash_attention_plain_matches_pallas_kernel_head_dims(hd, G, causal):
+    """The flash kernel's plain version against the Pallas kernel in
+    interpret mode at hd 80, 112 and 160 (the GQA groups of hubert-xlarge,
+    zamba2-7b here at G 2, and stablelm-12b), a ragged length of 37 over
+    16-blocks, with a window and a softcap: atol 1e-5."""
+    B, S, KH = 1, 37, 2
+    q = RNG.normal(size=(B, S, KH * G, hd)).astype(np.float32)
+    k = RNG.normal(size=(B, S, KH, hd)).astype(np.float32)
+    v = RNG.normal(size=(B, S, KH, hd)).astype(np.float32)
+    want = np.asarray(jops.attention(q, k, v, causal=causal, window=11,
+                                     softcap=2.5, block_q=16, block_k=16,
+                                     interpret=True))
+    got = ops.flash_attention(*map(torch.as_tensor, (q, k, v)),
+                              causal=causal, window=11, softcap=2.5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
 # -------------------------------------------------------------- mLSTM ----
