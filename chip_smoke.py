@@ -10,9 +10,10 @@ each asserting, in order:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (all sources in
    parallel) and print the build time, nvcc's register/spill report and
-   the card's name and power limit; for the tensor-core kernels (the
-   bf16 flash kernel, the policy trunk and the mLSTM kernel's three
-   3xTF32 launches) count the tensor-core instructions
+   the card's name and power limit; for the tensor-core kernels (the env
+   step, whose observation runs in 3xTF32, the bf16 flash kernel, the
+   policy trunk and the mLSTM kernel's three 3xTF32 launches) count the
+   tensor-core instructions
    (``HGMMA``/``HMMA``) in ``cuobjdump -sass`` of the built library, and
    assert that each has some and that nvcc reports no spills;
 2. hold each of the eight kernels against its plain PyTorch version on the
@@ -33,6 +34,8 @@ each asserting, in order:
    B = 1, S = 256 from a non-zero state, h and the final (C, n, m) each within
    1e-4 of the plain output's largest magnitude) and at ragged shapes
    (every Table-6 env and trunk width, GAE and the n-step scan at T = 5,
+   GAE also at T = 40, where the advantages are re-read, and over 300,000
+   columns, grid-strided, each GAE call bit-identical to a second one,
    the pack at N = 999 with a version tensor; both attention kernels in
    f32 at hd 64 with 16-token pages, unmapped pages, idle rows, a window
    and a softcap, flash also in bf16 at those ragged shapes and, in f32
@@ -105,7 +108,11 @@ each asserting, in order:
    host-bound, by launched kernel where a call launches more than one (a
    profile that sees no kernel is taken again, with a warning line); the
    trunk's and the mLSTM kernel's bounds are their three TF32 passes at
-   the TF32 tensor-core peak; print one ``{"kernels": [...]}`` line.
+   the TF32 tensor-core peak, the env step's its projection's three TF32
+   passes plus the rest on the fp32 pipe (printed beside the fp32-pipe
+   figure); each row also carries the host time of one call on its own
+   (``host_ms``: CPU wall time, no synchronise); print one
+   ``{"kernels": [...]}`` line.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -130,6 +137,9 @@ T_MAIN = 16
 N_RAGGED = 1000
 N_A3C = 8192             # envs per serving GMI
 N_PACK_RAGGED = 999      # s*N*211 not a multiple of 4: unaligned runs
+# GAE columns beyond one a thread of every block an H100 holds at once
+# (132 SMs x 16 blocks x 128 threads = 270,336): grid-stride columns
+N_GAE_STRIDE = 300000
 # the serving path's kernel shapes: decode positions of the 8 slots near
 # the end of the phase-8 run (four 512 + 64, three 128 + 64, 896 + 64
 # tokens), the whole-prompt prefill dispatch (B, S) it makes, and the
@@ -142,7 +152,8 @@ FLASH_SHAPES = [(3, 128), (4, 512), (8, 512)]
 FLASH_TIMED = [(3, 128, 16, 8, 128), (8, 512, 16, 8, 128),
                (2, 512, 32, 8, 160)]
 # kernels that must reach the tensor cores: (library stem, kernel name)
-TENSOR_CORE = [("flash_attention", "flash_attention_mma_kernel"),
+TENSOR_CORE = [("env_megakernel", "env_mega_step_kernel"),
+               ("flash_attention", "flash_attention_mma_kernel"),
                ("fused_policy_mlp", "fused_policy_mlp_kernel"),
                ("mlstm_chunkwise", "mlstm_scores_kernel"),
                ("mlstm_chunkwise", "mlstm_cstate_kernel"),
@@ -283,6 +294,22 @@ def device_ms(fn):
     return sum(device_times(fn).values()) or None
 
 
+def host_ms(fn, reps=50, warmup=3) -> float:
+    """The median host (CPU wall) time of one call of ``fn`` on its own,
+    with no synchronise around it: what the caller's thread spends
+    enqueueing the call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(ts)[reps // 2] * 1e3
+
+
 def time_ms(fn, reps=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -403,11 +430,15 @@ def check_env(name, n, gen, dev, with_ring: bool) -> float:
 
 
 def check_gae(T, n, gen, dev) -> float:
+    """Within the tolerance of the plain version, and bit-identical from
+    call to call."""
     from repro_torch.kernels import ops, ref
     args = gae_inputs(T, n, gen, dev)
     ga, gr = ops.gae_norm(*args)
+    ga2, gr2 = ops.gae_norm(*args)
     wa, wr = ref.gae_norm_ref(*args)
     torch.cuda.synchronize()
+    assert torch.equal(ga, ga2) and torch.equal(gr, gr2), ("gae_norm", T, n)
     err = max(max_err(ga, wa), max_err(gr, wr))
     assert err <= TOL["gae_norm"], ("gae_norm", T, n, err)
     return err
@@ -1147,18 +1178,21 @@ def flash_bound(B, S, H, KH, hd, es):
 
 # ------------------------------------------------------------- bounds ----
 def env_bound(N, J, obs_dim, substeps):
+    """Bytes, and the operations as (count, peak) pairs whose times add:
+    the observation projection in three TF32 passes on the tensor cores,
+    the rest on the fp32 pipe."""
     R = 6 + 4 * J + 3
     # reads q, qd, action (N,J) f32, root (N,6), t/seed/resets (N,) i32 and
     # the constants; writes q, qd, prev_action, root, t, resets, obs,
     # reward, done.  prev_action is an input the step never reads.
     bytes_ = 4 * (3 * N * J + 6 * N + 3 * N + R * obs_dim + 3 * J) \
         + 4 * (3 * N * J + 6 * N + 2 * N + N * obs_dim + 2 * N)
-    # observation projection + tanh, and ~32 fp32 ops a joint a substep
-    # (coupling, gravity, qdd, clip, Euler, tip cumsum, thrust sums,
-    # counting each sin/cos as one) plus ~30 a substep for the root
-    ops_ = 2 * N * R * obs_dim + N * obs_dim \
-        + N * substeps * (32 * J + 30)
-    return bytes_, ops_
+    # observation projection, then tanh and ~32 fp32 ops a joint a
+    # substep (coupling, gravity, qdd, clip, Euler, tip cumsum, thrust
+    # sums, counting each sin/cos as one) plus ~30 a substep for the root
+    proj = 2 * N * R * obs_dim
+    rest = N * obs_dim + N * substeps * (32 * J + 30)
+    return bytes_, [(proj, PEAK_3XTF32), (rest, PEAK_F32)]
 
 
 def gae_bound(T, N):
@@ -1186,8 +1220,19 @@ def pack_bound(T, N, obs_dim, act_dim):
 
 
 def bound_ms(bytes_, ops_, peak_ops=PEAK_F32):
-    tb, to = bytes_ / PEAK_BYTES * 1e3, ops_ / peak_ops * 1e3
+    """The larger of the bytes' time and the operations' time; ``ops_``
+    is a count at ``peak_ops``, or a list of (count, peak) pairs whose
+    times add."""
+    tb = bytes_ / PEAK_BYTES * 1e3
+    if isinstance(ops_, list):
+        to = sum(o / p for o, p in ops_) * 1e3
+    else:
+        to = ops_ / peak_ops * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def op_count(ops_):
+    return sum(o for o, _ in ops_) if isinstance(ops_, list) else ops_
 
 
 def main() -> int:
@@ -1323,8 +1368,13 @@ def main() -> int:
               f"non-zero state, log_i x5, log_f ~ logsigmoid(N(-6, 1)): "
               f"max_abs_err={e:.3g} (tol {TOL['mlstm_chunkwise']:g} of each "
               "output's largest magnitude)")
+    e40 = check_gae(40, N_RAGGED, gen, dev)
     print(f"[check] gae_norm T=5 N={N_RAGGED}: max_abs_err="
-          f"{check_gae(5, N_RAGGED, gen, dev):.3g}")
+          f"{check_gae(5, N_RAGGED, gen, dev):.3g}; T=40 (advantages "
+          f"re-read from L2) max_abs_err={e40:.3g}; T=4 N={N_GAE_STRIDE} "
+          f"(grid-stride columns) max_abs_err="
+          f"{check_gae(4, N_GAE_STRIDE, gen, dev):.3g} (tol 1e-4; each "
+          "bit-identical over two calls)")
     print(f"[check] nstep_returns T=5 N={N_RAGGED}: max_abs_err="
           f"{check_nstep(5, N_RAGGED, gen, dev):.3g}")
     ver = torch.tensor([[11]], dtype=torch.int32, device=dev)
@@ -1507,7 +1557,8 @@ def main() -> int:
         return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": time_ms(lib) if lib else None,
-                "bytes": nbytes, "ops": nops}
+                "host_ms": host_ms(kern), "bytes": nbytes,
+                "ops": op_count(nops)}
 
     for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
         row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -1547,7 +1598,15 @@ def main() -> int:
                   f"library {sh['library_device_ms']} ms")
             print(f"[time] {name}{at}: kernel {sh['ms']:.4f} ms, plain "
                   f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
-                  f"({sh['bound_by']}), library {sh['library_ms']} ms{dv}")
+                  f"({sh['bound_by']}), library {sh['library_ms']} ms{dv}, "
+                  f"host time of a call on its own {sh['host_ms']:.4f} ms")
+        if name == "env_mega_step":
+            nb_, no_ = timings[name][3]
+            f32_ms, f32_by = bound_ms(nb_, op_count(no_))
+            print(f"[time] env_mega_step bound both ways: "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) with the "
+                  f"projection in three TF32 passes on the tensor cores, "
+                  f"{f32_ms:.4f} ms ({f32_by}) on the fp32 pipe alone")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

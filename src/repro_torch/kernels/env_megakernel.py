@@ -10,23 +10,36 @@ given, writes the acted-on obs, raw action, reward and done into ring row
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 MAX_JOINTS = 21
+MAX_OBS = 256
 _RING_KEYS = ("obs", "actions", "rewards", "dones")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _fn():
-    lib = _build.load("env_megakernel")
+def bind(lib):
+    """The launch function of a library built from
+    ``csrc/env_megakernel.cu``, with its argument types."""
     f = lib.env_mega_step_launch
     f.argtypes = [_P] * 25 + [_I] * 8 + [_P, _P]
     f.restype = _I
     return f
+
+
+@functools.cache
+def _fn():
+    return bind(_build.load("env_megakernel"))
+
+
+@functools.cache
+def _consts(chain, task, h):
+    return (ctypes.c_float * 14)(*chain, *task, h)
 
 
 def _check(x, shape, dtype, name):
@@ -38,9 +51,11 @@ def launch(q, qd, root, prev_action, t, seed, resets, action, obs, bufs,
            substeps, dt, max_episode_len):
     N, J = q.shape
     R, obs_dim = sensor.shape
-    if not 1 <= J <= MAX_JOINTS or R != 6 + 4 * J + 3:
-        raise ValueError(f"env_mega_step: J={J} (<= {MAX_JOINTS}) and "
-                         f"sensor rows {R} (== 6+4J+3) required")
+    if not 1 <= J <= MAX_JOINTS or R != 6 + 4 * J + 3 \
+            or not 1 <= obs_dim <= MAX_OBS:
+        raise ValueError(f"env_mega_step: J={J} (<= {MAX_JOINTS}), sensor "
+                         f"rows {R} (== 6+4J+3) and obs_dim={obs_dim} (<= "
+                         f"{MAX_OBS}) required")
     f32, i32 = torch.float32, torch.int32
     for x, shape, dt_, nm in (
             (q, (N, J), f32, "q"), (qd, (N, J), f32, "qd"),
@@ -74,7 +89,6 @@ def launch(q, qd, root, prev_action, t, seed, resets, action, obs, bufs,
     obs_o = torch.empty((N, obs_dim), dtype=f32, device=dev)
     rew_o = torch.empty((N,), dtype=f32, device=dev)
     done_o = torch.empty_like(rew_o)
-    consts = (ctypes.c_float * 14)(*chain, *task, dt / substeps)
     err = _fn()(
         q.data_ptr(), qd.data_ptr(), root.data_ptr(), t.data_ptr(),
         seed.data_ptr(), resets.data_ptr(), action.data_ptr(),
@@ -84,7 +98,8 @@ def launch(q, qd, root, prev_action, t, seed, resets, action, obs, bufs,
         t_o.data_ptr(), resets_o.data_ptr(), obs_o.data_ptr(),
         rew_o.data_ptr(), done_o.data_ptr(), *ring,
         N, J, obs_dim, ring_cols, int(step_t), int(slot), int(substeps),
-        int(max_episode_len), consts,
+        int(max_episode_len),
+        _consts(tuple(chain), tuple(task), dt / substeps),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"env_mega_step kernel launch failed: CUDA error "

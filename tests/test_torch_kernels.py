@@ -261,6 +261,26 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
 
 
+@pytest.mark.parametrize("J,obs_dim", [(8, 257), (22, 60)])
+def test_env_kernel_refuses_widths_it_cannot_take(monkeypatch, J, obs_dim):
+    """The env kernel takes at most 21 joints and four 64-column
+    observation tiles: anything wider is refused before the build."""
+    def refuse(*a, **k):
+        raise AssertionError("validation must come before the build")
+    monkeypatch.setattr(_build, "load", refuse)
+    q = torch.zeros((4, J))
+    i = torch.zeros(4, dtype=torch.int32)
+    sensor = torch.zeros((6 + 4 * J + 3, obs_dim))
+    v = torch.ones(J)
+    with pytest.raises(ValueError, match="required"):
+        env_megakernel.launch(q, q, torch.zeros((4, 6)), q, i, i, i, q, None,
+                              None, 0, 0, sensor, v, v, v,
+                              chain=(0.5, 0.6, 2.0, 8.0, 9.81, 3.0, 60.0,
+                                     2.0),
+                              task=(1.0, 0.2, 0.005, 0.0, 0.12), substeps=4,
+                              dt=1 / 60, max_episode_len=1000)
+
+
 # ---------------------------------------------------------- attention ----
 def _paged_case(dtype=np.float32, hd=32):
     """Ragged paged inputs: B = 4 rows over an M = 5 page table of 4-slot

@@ -27,6 +27,19 @@ the split (``torch.tanh`` and the softmax's own loop).
   (m, l, acc) with weights exp(m_s - max m); a range that saw no key
   carries m = -1e30 and l = 0 and adds nothing, and an all-masked row
   comes out exactly 0.
+* ``csrc/env_megakernel.cu`` spreads each env's joints over a group of G
+  lanes: the tip's cumsum is a serial prefix in each lane on top of an
+  exclusive scan of the lane totals, the thrust, reward and feature sums
+  are xor butterflies over the group, sin(q) is carried from one substep
+  into the next one's gravity term, and the observation is the 3xTF32
+  product of the split raw features and the split sensor.  For every
+  Table-6 env, with 1/8 of the envs forced to reset, that order of
+  operations stays within the card check's 1e-4 of the plain step, and
+  t, resets and done are exact.
+* ``csrc/gae_scan.cu`` normalises the advantages in one launch: per-block
+  partial sums in the warp-shuffle tree order, summed by every block in
+  the same fixed order, a centred second pass, grid-stride columns when
+  the grid is capped.  Within 1e-4 of the plain GAE.
 
 TF32 rounding is emulated by masking the mantissa as the kernel does it:
 add half of the 13 dropped bits to the magnitude and clear them, which is
@@ -354,6 +367,267 @@ def test_split_kv_merge_matches_the_plain_version(nsplit, window, cap):
             assert bf16_ulps(got, want) <= 1.0
         else:
             assert float((got - want).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------- env step
+def _lane_runs(J: int, G: int):
+    """Lane r of a group holds joints [r * jl, min(J, (r + 1) * jl))."""
+    jl = -(-J // G)
+    return [list(range(r * jl, min(J, (r + 1) * jl))) for r in range(G)]
+
+
+def _lane_sums(x, runs):
+    """(N, G): each lane's serial sum of its joints' terms in x (N, J)."""
+    cols = []
+    for run in runs:
+        acc = torch.zeros(x.shape[0], dtype=x.dtype)
+        for j in run:
+            acc = acc + x[:, j]
+        cols.append(acc)
+    return torch.stack(cols, dim=1)
+
+
+def _butterfly(v):
+    """The __shfl_xor_sync sum over the G lanes of v (N, G): lane r adds
+    lane r ^ o for o = G/2, ..., 1; every lane ends with the same bits."""
+    G = v.shape[1]
+    lanes = torch.arange(G)
+    o = G // 2
+    while o:
+        v = v + v[:, lanes ^ o]
+        o //= 2
+    assert bool((v == v[:, :1]).all())
+    return v[:, 0]
+
+
+def _exclusive(tot):
+    """The kernel's scan of the lane totals tot (N, G): Hillis-Steele
+    inclusive by __shfl_up_sync, then shifted one lane (0 in lane 0)."""
+    G = tot.shape[1]
+    x, o = tot, 1
+    while o < G:
+        up = torch.cat([x[:, :o], x[:, :-o]], dim=1)
+        keep = torch.arange(G) >= o
+        x = torch.where(keep, x + up, x)
+        o *= 2
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _tip(q, lengths, runs):
+    """sum_j l_j cos(cumsum(q)_j) in the kernel's order: each lane's
+    serial prefix from the scan of the lane totals, then a butterfly."""
+    ex = _exclusive(_lane_sums(q, runs))
+    parts = []
+    for r, run in enumerate(runs):
+        cum, acc = ex[:, r], torch.zeros(q.shape[0])
+        for j in run:
+            cum = cum + q[:, j]
+            acc = acc + lengths[j] * torch.cos(cum)
+        parts.append(acc)
+    return _butterfly(torch.stack(parts, dim=1))
+
+
+def env_step_emulated(q, qd, root, t, seed, resets, action, sensor, tgt,
+                      masses, lengths, *, chain, task, substeps, dt,
+                      max_episode_len, G, product=matmul_3xtf32):
+    """The env kernel's order of operations with G lanes an env, the
+    observation's product by ``product``.  Returns (q, qd, root,
+    prev_action, t, resets, obs, reward, done)."""
+    from repro_torch.envs.physics import counter_normal
+    (damping, coupling, stiffness, max_qd, gravity, torque_scale,
+     ground_k, ground_c) = chain
+    w_fwd, w_up, w_ctrl, w_tgt, fall_z = task
+    N, J = q.shape
+    runs = _lane_runs(J, G)
+    a = torch.clamp(action, -1.0, 1.0)
+    gml = gravity * masses * lengths
+    inertia = masses * (lengths * lengths) + 1e-3
+    h = dt / substeps
+    s = torch.sin(q)                       # carried from substep to substep
+    for _ in range(substeps):
+        # the exchanged neighbours are the shifts' values
+        left = torch.cat([q[:, :1], q[:, :-1]], dim=1)
+        right = torch.cat([q[:, 1:], q[:, -1:]], dim=1)
+        lap = left - 2.0 * q + right
+        qdd = (torque_scale * a - damping * qd - stiffness * q - gml * s
+               + coupling * lap) / inertia
+        qd = torch.clamp(qd + h * qdd, -max_qd, max_qd)
+        q = q + h * qd
+        tip = _tip(q, lengths, runs)
+        s = torch.sin(q)
+        s_sin = _butterfly(_lane_sums(s * a, runs))
+        s_cos2 = _butterfly(_lane_sums(torch.cos(2.0 * q) * a, runs))
+        pen = torch.clamp(-(root[:, 2] + tip), min=0.0)
+        contact = ground_k * pen - ground_c * torch.clamp(
+            root[:, 5], max=0.0) * (pen > 0)
+        thrust = torch.stack([s_sin / J * torque_scale, 0.1 * (s_cos2 / J),
+                              contact - gravity * 0.5], dim=1)
+        vel = (root[:, 3:] + h * thrust) * 0.98
+        pos = root[:, :3] + h * vel
+        pos = torch.cat([pos[:, :2], torch.clamp(pos[:, 2:3], min=0.05)],
+                        dim=1)
+        root = torch.cat([pos, vel], dim=1)
+    s_q = _butterfly(_lane_sums(q, runs))
+    s_a2 = _butterfly(_lane_sums(a * a, runs))
+    s_tgt = _butterfly(_lane_sums(torch.square(q - tgt), runs))
+    reward = (w_fwd * root[:, 3] + w_up * torch.cos(s_q / J)
+              - w_ctrl * s_a2 - w_tgt * (s_tgt / J) + 0.5)
+    t = t + 1
+    done = (t >= max_episode_len) | (root[:, 2] < fall_z)
+    d = done[:, None]
+    resets = torch.where(done, resets + 1, resets).to(torch.int32)
+    fresh = 0.1 * counter_normal(seed[:, None], resets[:, None],
+                                 torch.arange(J, dtype=torch.int64))
+    q = torch.where(d, fresh, q)
+    s = torch.where(d, torch.sin(fresh), s)
+    qd = torch.where(d, 0.0, qd)
+    a = torch.where(d, 0.0, a)
+    root = torch.where(d, torch.tensor([0.0, 0.0, 0.6, 0.0, 0.0, 0.0]), root)
+    t = torch.where(done, 0, t).to(torch.int32)
+    tip = _tip(q, lengths, runs)
+    s_abs = _butterfly(_lane_sums(torch.abs(qd), runs))
+    raw = torch.cat([root, s, torch.cos(q), qd, a,
+                     torch.stack([root[:, 2] + tip, root[:, 2] - 0.6,
+                                  s_abs / J], dim=1)], dim=1)
+    obs = torch.tanh(product(raw, sensor))
+    return q, qd, root, a, t, resets, obs, reward, done.float()
+
+
+@pytest.mark.parametrize("G", [4, 8, 32])
+@pytest.mark.parametrize("name", ["Ant", "Anymal", "BallBalance",
+                                  "FrankaCabinet", "Humanoid", "ShadowHand"])
+def test_lane_group_env_step_within_the_card_check(name, G):
+    """The env kernel's lane-group order of sums, carried sin(q) and
+    3xTF32 observation against the plain step, 1/8 of 48 envs forced to
+    reset after three plain steps: floats within 1e-4, ints and done
+    exact.  One TF32 pass would miss the observation's gate."""
+    from repro_torch.envs import make_env
+    env = make_env(name, megakernel=True, device="cpu")
+    sp, mc = env.spec, env.mega
+    N, J = 48, sp.act_dim
+    rng = np.random.default_rng(J * 10 + G)
+    kw = dict(chain=mc.chain, task=mc.task, substeps=sp.substeps, dt=sp.dt,
+              max_episode_len=sp.max_episode_len)
+    consts = (mc.sensor, mc.tgt, mc.masses, mc.lengths)
+    seed = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, N).astype(np.int32))
+    q = torch.from_numpy((rng.standard_normal((N, J)) * 0.1)
+                         .astype(np.float32))
+    state = [q, torch.zeros_like(q),
+             torch.tensor([0.0, 0.0, 0.6, 0.0, 0.0, 0.0]).repeat(N, 1),
+             torch.zeros_like(q), torch.zeros(N, dtype=torch.int32), seed,
+             torch.zeros(N, dtype=torch.int32)]
+    obs = torch.zeros((N, sp.obs_dim))
+    for _ in range(3):
+        act = torch.from_numpy(rng.uniform(-1, 1, (N, J)).astype(np.float32))
+        out = ref.mega_step(*state, act, obs, None, 0, 0, *consts, **kw)
+        state, obs = list(out[:7]), out[7]
+    state[4][::8] = sp.max_episode_len - 1
+    act = torch.from_numpy(rng.uniform(-1.5, 1.5, (N, J)).astype(np.float32))
+    want = ref.mega_step(*state, act, obs, None, 0, 0, *consts, **kw)
+    q, qd, root, _, t, seed, resets = state
+    got = env_step_emulated(q, qd, root, t, seed, resets, act, *consts,
+                            G=G, **kw)
+    names = ("q", "qd", "root", "prev_action", "t", "resets", "obs",
+             "reward", "done")
+    for nm, g, w in zip(names, got, [want[i] for i in (0, 1, 2, 3, 4, 6, 7,
+                                                       8, 9)]):
+        if nm in ("t", "resets", "done"):
+            assert torch.equal(g, w), nm
+        else:
+            err = float((g - w).abs().max())
+            assert err <= 1e-4, (nm, err)
+    assert bool(got[8][::8].eq(1.0).all())
+    one = env_step_emulated(q, qd, root, t, seed, resets, act, *consts,
+                            G=G, product=matmul_1xtf32, **kw)
+    assert float((one[6] - want[7]).abs().max()) > 1e-4
+
+
+# --------------------------------------------------------------------- GAE
+def _block_sum(v):
+    """The kernel's block_sum of v (..., 128): a __shfl_down_sync tree in
+    each warp, then the four warp sums by the same tree in warp 0 (the
+    other lanes hold 0)."""
+    x = v.reshape(*v.shape[:-1], 4, 32)
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    w = x[..., 0]
+    w = w[..., :2] + w[..., 2:4]
+    return w[..., 0] + w[..., 1]
+
+
+def _sum_partials(p):
+    """Every block's sum of the partials p: thread i adds p[i], p[i + 128],
+    ... in order, then block_sum."""
+    n = p.shape[0]
+    lanes = torch.zeros(128)
+    for i0 in range(0, n, 128):
+        chunk = p[i0:i0 + 128]
+        lanes[:chunk.shape[0]] = lanes[:chunk.shape[0]] + chunk
+    return _block_sum(lanes)
+
+
+def gae_norm_emulated(r, v, d, last, gamma=0.99, lam=0.95, eps=1e-8,
+                      resident=None):
+    """The one-launch GAE's arithmetic: 128 threads a block, the grid
+    capped at ``resident`` blocks, each thread its columns n, n + grid *
+    128, ...; fixed-order partial sums, centred variance."""
+    T, N = r.shape
+    blocks = -(-N // 128)
+    grid = blocks if resident is None else min(blocks, resident)
+    stride = grid * 128
+    cols = -(-N // stride)
+    pad = cols * stride - N
+    # thread (b, l) takes columns b*128 + l + c*stride, c = 0..cols-1
+    rp, vp, dp = (torch.cat([x, torch.zeros(T, pad)], dim=1)
+                  for x in (r, v, d))
+    lp = torch.cat([last, torch.zeros(pad)])
+    live = torch.arange(cols * stride) < N
+    gl = gamma * lam
+    adv = torch.zeros(T, cols * stride)
+    a, v_next = torch.zeros(cols * stride), lp
+    for t in range(T - 1, -1, -1):
+        nonterm = 1.0 - dp[t]
+        delta = rp[t] + gamma * v_next * nonterm - vp[t]
+        a = delta + gl * nonterm * a
+        adv[t] = a
+        v_next = vp[t]
+    ret = adv + vp
+
+    def block_partials(x, order):
+        """Each thread's serial sum over its columns and the t of
+        ``order``, then each block's sum: (grid,)."""
+        x = torch.where(live, x, 0.0).reshape(T, cols, grid, 128)
+        acc = torch.zeros(grid, 128)
+        for c in range(cols):
+            for t in order:
+                acc = acc + x[t, c]
+        return _block_sum(acc)
+
+    count = float(np.float32(T) * np.float32(N))
+    # pass 1 sums each column from t = T - 1 down, as the scan runs
+    mean = _sum_partials(block_partials(adv, range(T - 1, -1, -1))) / count
+    var = _sum_partials(block_partials(torch.square(adv - mean),
+                                       range(T))) / count
+    denom = torch.sqrt(torch.clamp(var, min=0.0)) + eps
+    return ((adv - mean) / denom)[:, :N], ret[:, :N]
+
+
+@pytest.mark.parametrize("T,N,resident", [(16, 16384, None), (5, 1000, None),
+                                          (40, 1000, None), (4, 5000, 8)])
+def test_one_launch_gae_within_the_card_check(T, N, resident):
+    """The one-launch GAE's fixed-order reduction (and, with ``resident``,
+    its grid-stride columns) within the card check's 1e-4 of the plain
+    GAE."""
+    rng = np.random.default_rng(T * 7 + N)
+    r = torch.from_numpy(rng.standard_normal((T, N)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((T, N)).astype(np.float32))
+    d = torch.from_numpy((rng.uniform(size=(T, N)) < 0.05)
+                         .astype(np.float32))
+    last = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    ga, gr = gae_norm_emulated(r, v, d, last, resident=resident)
+    wa, wr = ref.gae_norm_ref(r, v, d, last)
+    assert float((ga - wa).abs().max()) <= 1e-4
+    assert float((gr - wr).abs().max()) <= 1e-4
 
 
 def single_p_report(seed=3):
