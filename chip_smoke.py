@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's four paths: synchronous PPO,
-asynchronous A3C over the MCC experience ring, and the paged serving
-engine at internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width.
+"""On-card smoke test of the PyTorch port's five paths: synchronous PPO,
+asynchronous A3C over the MCC experience ring, the paged serving engine at
+internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, and
+multi-GMI synchronous PPO (several GMIs on one card, one CUDA stream each).
 
     python3 chip_smoke.py
 
@@ -20,7 +21,8 @@ each asserting, in order:
    card at its path's shapes (ShadowHand, N = 16384, a share of envs
    forced to reset; the env megakernel without and with ring writes; GAE
    and the n-step scan at T = 16, N = 16384; the trunk at 16384 x 211 ->
-   256; the ring pack of one A3C push, T = 16, N = 8192, slot 1 of 2, the
+   256; the env megakernel in both ring modes, the trunk and GAE also at
+   a GMI's share of phase 12's envs, N = 4096 and 8192; the ring pack of one A3C push, T = 16, N = 8192, slot 1 of 2, the
    other slot a sentinel, bit-exact; paged decode attention in bf16 at
    internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
    128, 8-token pages, 1024 positions, and at phase 11's, B = 4, 32 q
@@ -99,7 +101,27 @@ each asserting, in order:
    step and one flash launch per layer per whole-prompt dispatch, and
    prints prefill and decode tok/s and the ``oracle_generate`` match
    count of two requests (printed, not asserted, as in phase 8);
-12. time each kernel, its plain version and, where one PyTorch call
+12. drive multi-GMI synchronous PPO at full width (ShadowHand, N = 16384
+   envs in total, T = 16, fused kernels): print the TCG_EX layouts at
+   (num_gpus, gmi_per_gpu) = (1, 4) and (2, 2) with the launcher's
+   logical ids and Algorithm 1's strategy for each; hold
+   ``Communicator.allreduce`` of the ShadowHand policy's gradient tree
+   stacked over instance grids (1, 4), (2, 2) and (2, 2, 2), for every
+   candidate strategy, against the host-staged ``reduce_host`` within
+   1e-6 of each leaf's largest magnitude, and print each one's time;
+   run ``launch/train.py``'s ``run_drl`` at 1 x 4 GMIs for 3 iterations
+   with every GMI on its own CUDA stream, with the launch counters set
+   to 0 just before and read just after (env step 4 x 16 x 3, trunk
+   4 x 17 x 3, GAE 4 x 3, nothing else), and again with every GMI on the
+   default stream in turn: params within 1e-6, the same launches; print
+   env steps/s for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs on streams and
+   4 x 4096 in turn (same total envs and iterations; printed, not
+   asserted); run Algorithm 2 (``explore`` over
+   the port's PPO profiler, GMIperGPU 4, 2, 1, num_env 4096 and 16384)
+   and print its trace and best config; launch the cooperative GAE kernel
+   while another stream runs a GEMM chain (it must succeed and agree with
+   its plain version; when it finished is printed);
+13. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (flash at
    phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512 and at
    phase 11's stablelm-12b B = 2 x 512, hd 160, in the row's ``shapes``
@@ -159,6 +181,17 @@ TENSOR_CORE = [("env_megakernel", "env_mega_step_kernel"),
                ("mlstm_chunkwise", "mlstm_cstate_kernel"),
                ("mlstm_chunkwise", "mlstm_out_kernel")]
 A3C_ROUNDS = 3
+# the multi-GMI phase: layouts printed, iterations of the streams-vs-
+# sequential gate, and the steps/s sweep (GMIs per GPU, dispatch mode), all
+# at N_MAIN envs in total
+GMI_LAYOUTS = [(1, 4), (2, 2)]
+GMI_ITERS = 3
+GMI_SWEEP = [(1, "streams"), (2, "streams"), (4, "streams"),
+             (4, "sequential")]
+# envs a GMI holds at 4 and at 2 GMIs a card: phase 2 checks the env step,
+# the trunk and GAE at these too
+GMI_N = (N_MAIN // 4, N_MAIN // 2)
+GMI_SWEEP_ITERS = 4
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
 PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense, flop/s
@@ -617,6 +650,207 @@ def run_a3c(dev, megakernel: bool):
         assert obs.shape == (N_A3C, SPECS[ENV].obs_dim)
         assert bool(obs.isfinite().all())
     return launches, round_s, elapsed, losses, samples
+
+
+# ---------------------------------------------------------- multi-GMI ----
+def gmi_args(dev, gmi_per_gpu, iters=GMI_ITERS, dispatch="streams"):
+    """``launch/train.py --workload drl`` arguments at the full width, one
+    GPU of ``gmi_per_gpu`` GMIs."""
+    import argparse
+    return argparse.Namespace(
+        env=ENV, num_gpus=1, gmi_per_gpu=gmi_per_gpu, num_env=N_MAIN,
+        rollout=T_MAIN, iters=iters, seed=0, device=str(dev),
+        dispatch=dispatch)
+
+
+def check_layouts(dev):
+    """Phase 12.1: the TCG_EX layouts the launcher plans, with the
+    launcher's logical ids, and Algorithm 1's strategy for each."""
+    from repro_torch.core.placement import plan_tcg_ex_training
+    lines = []
+    for g, t in GMI_LAYOUTS:
+        lay = plan_tcg_ex_training(
+            g, t, devices=list(range(max(torch.cuda.device_count(), g * t))),
+            devices_per_gpu=t, device=dev)
+        comm = lay.communicator()
+        lines.append(f"[gmi] TCG_EX {g} x {t}:\n{lay.manager.summary()}\n"
+                     f"[gmi] Algorithm 1 strategy {comm.strategy}, grid "
+                     f"{comm.grid}, candidates {comm.candidates()}")
+    return lines
+
+
+def lgr_grids(dev):
+    """Instance grids (1, 4), (2, 2) and (2, 2, 2) on the card, one CUDA
+    stream per GMI."""
+    from repro_torch.core.gmi import GMIManager
+    from repro_torch.core.placement import plan_tcg_ex_training
+    grids = []
+    for g, t in ((1, 4), (2, 2)):
+        lay = plan_tcg_ex_training(g, t, devices=list(range(g * t)),
+                                   devices_per_gpu=t, device=dev)
+        grids.append(lay.manager.instance_mesh("holistic"))
+    mgr = GMIManager(list(range(8)), 4, device=dev)
+    for gid in range(4):
+        mgr.add_gmi(gid, "trainer", 0.5)
+        mgr.set_gpu(gid, gid // 2)
+    grids.append(mgr.instance_mesh("trainer"))
+    return grids
+
+
+def check_lgr(dev, gen):
+    """Phase 12.2: ``Communicator.allreduce`` of the ShadowHand policy's
+    gradient tree stacked over each grid, for every candidate strategy,
+    against the host-staged ``reduce_host`` (``mpr_host``): every cell of
+    every leaf within 1e-6 of the leaf's largest magnitude.  Also the
+    device time of each (one card: one sum in several shapes)."""
+    import itertools
+    from repro_torch.comm import Communicator, ReduceCostModel
+    from repro_torch.envs import SPECS
+    from repro_torch.models.policy import init_policy
+    from repro_torch.utils import tree_leaves, tree_map
+    params = init_policy(gen, SPECS[ENV].policy_dims)
+    nparam = sum(p.numel() for p in tree_leaves(params))
+    lines, worst = [], 0.0
+    for grid in lgr_grids(dev):
+        gshape = grid.shape
+        d = gshape[2] if len(gshape) > 2 else 1
+        grads = tree_map(lambda p: torch.randn(gshape + tuple(p.shape),
+                                               generator=gen, device=dev),
+                         params)
+        cells = list(itertools.product(*map(range, gshape)))
+        for strat in ReduceCostModel(dev_per_inst=d).candidates(gshape):
+            comm = Communicator(strat, mesh=grid)
+            out = comm.allreduce(grads)
+            want = comm.reduce_host([tree_map(lambda x: x[c], grads)
+                                     for c in cells])
+            err = 0.0
+            for o, w in zip(tree_leaves(out), tree_leaves(want)):
+                w = w.to(dev)
+                err = max(err, float((o - w).abs().max() / w.abs().max()))
+            assert err <= 1e-6, (gshape, strat, err)
+            worst = max(worst, err)
+            ms = time_ms(lambda: comm.allreduce(grads))
+            dv = device_ms(lambda: comm.allreduce(grads))
+            lines.append(f"[lgr] grid {gshape} {grid.axis_names} {strat}: "
+                         f"max err {err:.3g} of each leaf's largest "
+                         f"magnitude (tol 1e-6), {ms:.4f} ms a call (CUDA "
+                         f"events), device time {dv} ms")
+    lines.append(f"[lgr] ShadowHand gradient tree {nparam:,} f32 "
+                 f"({nparam * 4 / 1e6:.2f} MB) per instance; worst error "
+                 f"{worst:.3g}")
+    return lines
+
+
+def run_gmis_parity(dev):
+    """Phase 12.3: ``run_drl`` at 1 x 4 GMIs, GMI_ITERS iterations, each GMI
+    on its own stream with the launch counters set to 0 just before and
+    read just after, then again with every GMI on the default stream in
+    turn: the params within 1e-6 and the same launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_drl
+    from repro_torch.utils import tree_leaves
+    runs, by_mode = {}, {}
+    for dispatch in ("streams", "sequential"):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = run_drl(gmi_args(dev, 4, dispatch=dispatch))
+        torch.cuda.synchronize()
+        by_mode[dispatch] = dict(ops.LAUNCHES)
+        runs[dispatch] = out
+        for it in out["metrics"]:
+            for m in it:
+                assert all(v == v and abs(v) < float("inf")
+                           for v in m.values()), m
+    want = {k: 0 for k in TOL}
+    want.update({"env_mega_step": 4 * T_MAIN * GMI_ITERS,
+                 "policy_mlp": 4 * (T_MAIN + 1) * GMI_ITERS,
+                 "gae_norm": 4 * GMI_ITERS})
+    for dispatch, la in by_mode.items():
+        assert la == want, (dispatch, la, want)
+    diff = max(max_err(a, b) for a, b in zip(
+        tree_leaves(runs["streams"]["params"]),
+        tree_leaves(runs["sequential"]["params"])))
+    assert diff <= 1e-6, diff
+    bit = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs["streams"]["params"]),
+        tree_leaves(runs["sequential"]["params"])))
+    return by_mode["streams"], diff, bit, runs
+
+
+def measure_gmis(dev):
+    """Phase 12.4: env steps/s of run_drl at the same total envs and
+    iterations for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs on streams, and
+    4 x 4096 sequential; the first iteration is the warm-up, the rate is
+    over the rest."""
+    from repro_torch.launch.train import run_drl
+    lines = []
+    for k, dispatch in GMI_SWEEP:
+        out = run_drl(gmi_args(dev, k, GMI_SWEEP_ITERS, dispatch))
+        s = out["iter_s"]
+        rate = (len(s) - 1) * T_MAIN * N_MAIN / sum(s[1:])
+        lines.append(f"[multiplex] {k} GMI x {N_MAIN // k} envs, "
+                     f"dispatch={dispatch}: {rate:,.0f} env steps/s "
+                     f"(iterations 2-{len(s)}), per-iteration s "
+                     f"{[round(x, 4) for x in s]}")
+    return lines
+
+
+def run_algorithm2(dev):
+    """Phase 12.5: Algorithm 2 over the port's PPO profiler on the card."""
+    from repro_torch.core.selection import explore, make_ppo_profiler
+    trace = explore(make_ppo_profiler(iters=1, device=dev), ENV, num_gpu=1,
+                    gmi_per_gpu_range=(4, 2, 1),
+                    num_env_sweep=(4096, 16384))
+    lines = [f"[alg2] GMIperGPU={g} num_env={n}: runnable={p.runnable} "
+             f"throughput {p.throughput:,.0f} env steps/s a GMI, memory "
+             f"model {p.memory:,.0f} B, Sat {s}"
+             for g, n, p, s in trace.points]
+    lines.append(f"[alg2] best_config (num_env, GMIperGPU) "
+                 f"{trace.best_config}, projected "
+                 f"{trace.best_throughput:,.0f} env steps/s")
+    return lines
+
+
+def gae_under_load(dev, gen):
+    """Phase 12.6: the cooperative GAE launch while another stream keeps
+    the card busy (a chain of 8 4096^3 fp32 GEMMs), at a GMI's N = 4096
+    columns (a small grid) and at N_GAE_STRIDE columns (a grid of every
+    block the card holds at once): it must return cudaSuccess (the wrapper
+    raises otherwise) and agree with its plain version within 1e-4;
+    printed, by CUDA events: when the GAE finished and when the chain
+    finished, from the chain's start (the GAE is enqueued just after the
+    chain)."""
+    from repro_torch.kernels import ops, ref
+    a = torch.randn(4096, 4096, generator=gen, device=dev)
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        b = a @ a           # the side stream's cuBLAS handle and workspace
+    lines = []
+    for n in (N_MAIN // 4, N_GAE_STRIDE):
+        r, v, d, last = gae_inputs(T_MAIN, n, gen, dev)
+        want = ref.gae_norm_ref(r, v, d, last)
+        side.wait_stream(main)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.cuda.stream(side):
+            ev[0].record()
+            for _ in range(8):
+                b = a @ a
+            ev[1].record()
+        got = ops.gae_norm(r, v, d, last)
+        ev[2].record()
+        torch.cuda.synchronize()
+        err = max(max_err(x, y) for x, y in zip(got, want))
+        assert err <= TOL["gae_norm"], (n, err)
+        lines.append(f"[gae_load] N={n}: cudaLaunchCooperativeKernel "
+                     f"returned cudaSuccess, max_abs_err={err:.3g}; the GAE "
+                     f"finished {ev[0].elapsed_time(ev[2]):.3f} ms after "
+                     f"the GEMM chain began, the chain "
+                     f"{ev[0].elapsed_time(ev[1]):.3f} ms after")
+    del b
+    return lines
 
 
 # ---------------------------------------------------------- attention ----
@@ -1270,10 +1504,13 @@ def main() -> int:
     spec = SPECS[ENV]
     trunk_dims = spec.policy_dims[:-1]
     errs = {
-        "env_mega_step": max(check_env(ENV, N_MAIN, gen, dev, False),
-                             check_env(ENV, N_MAIN, gen, dev, True)),
-        "gae_norm": check_gae(T_MAIN, N_MAIN, gen, dev),
-        "policy_mlp": check_trunk(trunk_dims, N_MAIN, gen, dev),
+        "env_mega_step": max(check_env(ENV, n, gen, dev, with_ring)
+                             for n in (N_MAIN,) + GMI_N
+                             for with_ring in (False, True)),
+        "gae_norm": max(check_gae(T_MAIN, n, gen, dev)
+                        for n in (N_MAIN,) + GMI_N),
+        "policy_mlp": max(check_trunk(trunk_dims, n, gen, dev)
+                          for n in (N_MAIN,) + GMI_N),
         "nstep_returns": check_nstep(T_MAIN, N_MAIN, gen, dev),
         "pack_channels": check_pack(T_MAIN, N_A3C, spec, gen, dev, 3),
     }
@@ -1318,6 +1555,8 @@ def main() -> int:
         if k == "mlstm_chunkwise":
             tol = f"tol {TOL[k]:g} of each output's largest magnitude"
         print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} ({tol})")
+    print(f"[check] env_mega_step (both ring modes), policy_mlp and gae_norm "
+          f"main-path shapes include a GMI's N = {GMI_N[0]} and {GMI_N[1]}")
     f32 = torch.float32
     for kw in (dict(), dict(window=37, softcap=5.0)):
         a = paged_inputs(5, 8, 4, 64, 16, 9, [130, -1, 17, 0, 143], gen, dev,
@@ -1485,9 +1724,32 @@ def main() -> int:
     print(f"[serve_stablelm] prefill {stats['prefill_tok_s']:,.1f} tok/s, "
           f"decode {stats['decode_tok_s']:,.1f} tok/s "
           f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows)")
+
+    # 12. multi-GMI synchronous PPO on one card ---------------------------
+    t12 = time.perf_counter()
+    for line in check_layouts(dev):
+        print(line)
+    for line in check_lgr(dev, gen):
+        print(line)
+    la, diff, bit, runs = run_gmis_parity(dev)
+    by_path["multi_gmi"] = la
+    rates = {k: v["steps_per_s"] for k, v in runs.items()}
+    print(f"[gmi] run_drl {ENV} 1 x 4 GMIs x {N_MAIN // 4} envs, T="
+          f"{T_MAIN}, {GMI_ITERS} iterations, strategy "
+          f"{runs['streams']['strategy']}: one stream a GMI against the "
+          f"default stream in turn, params max_abs_err={diff:.3g} (tol 1e-6;"
+          f" bit-identical: {bit}), launches {la} (both runs), env steps/s "
+          f"{rates}")
+    for line in measure_gmis(dev):
+        print(line)
+    for line in run_algorithm2(dev):
+        print(line)
+    for line in gae_under_load(dev, gen):
+        print(line)
+    print(f"[gmi] phase 12 took {time.perf_counter() - t12:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
-    # 12. timings -----------------------------------------------------------
+    # 13. timings -----------------------------------------------------------
     _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
     r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
     x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)

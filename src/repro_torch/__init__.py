@@ -3,8 +3,11 @@
 Module paths mirror the JAX package: ``repro_torch/envs/physics.py`` pairs
 with ``repro/envs/physics.py``.  The port imports ``torch`` and numpy only,
 never ``jax`` and nothing of ``repro``.  Entry points run on the CUDA card
-unless the caller passes ``device="cpu"``.  Four paths run end to end:
-synchronous PPO (``rl/ppo.py``, ``launch/train.py``), asynchronous A3C
+unless the caller passes ``device="cpu"``.  Five paths run end to end:
+synchronous PPO (``rl/ppo.py``), multi-GMI synchronous PPO over the GMI
+control plane and LGR (``core/gmi.py``, ``core/placement.py``,
+``core/selection.py``, ``comm/``, ``launch/train.py``; GMIs of one
+process share the card, one CUDA stream each), asynchronous A3C
 over the MCC experience ring (``rl/a3c.py``, ``core/channels.py``,
 ``launch/async_a3c.py``), and the paged LLM serving engine
 (``serve/engine.py``, ``launch/serve.py``) over the dense model stack

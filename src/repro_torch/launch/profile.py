@@ -2,15 +2,23 @@
 
 ``--workload ppo`` (default) runs warm-up iterations of the main path
 (``make_env(env, megakernel=True)`` + ``PPOConfig(use_fused_kernels=True)``),
-then one iteration under ``torch.profiler`` with CUDA activity.
+then one iteration under ``torch.profiler`` with CUDA activity.  With
+``--gmi-per-gpu K`` it runs the multi-GMI launcher's loop instead
+(``launch.steps.train_gmis`` over a 1 x K TCG_EX grid, ``--num-env`` envs
+in total, each GMI on its own CUDA stream, ``--dispatch``): it sets the
+GMIs up once, runs the warm-up iterations on that state and profiles one
+further iteration.
 ``--workload serve`` builds a paged ``ServeEngine`` over
 ``--arch`` at full width (random weights), submits ``--batch`` prompts of
 ``--prompt-len`` tokens, and profiles the first engine step (the batched
 whole-prompt prefill through the flash or mLSTM kernel, then one decode
 step) and, after two warm-up steps, one decode-only step.  Each report
 prints the wall time, the device's busy and idle shares (idle = 1 - union
-of kernel intervals / wall time), device time by group (the port kernels,
-cuBLAS GEMMs, everything else), and the top kernels by device time.  For
+of kernel intervals / wall time), the kernels' concurrency (their summed
+time over the busy time: above 1 where streams overlap) and how many GAE
+launches overlapped another kernel, device time by group (the port
+kernels, cuBLAS GEMMs, everything else), and the top kernels by device
+time.  For
 a stack with sLSTM blocks (``--arch xlstm-1.3b``) each ``slstm_apply``
 call runs inside a ``record_function`` range (no sync is added), and the
 kernels that host ops inside such a range launched count in their own
@@ -19,6 +27,7 @@ indistinguishable from the rest.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --env ShadowHand \
         --num-env 16384 --rollout 16
+    PYTHONPATH=src python -m repro_torch.launch.profile --gmi-per-gpu 4
     PYTHONPATH=src python -m repro_torch.launch.profile --workload serve \
         --batch 8 --prompt-len 512
 """
@@ -111,6 +120,14 @@ def _report(title, wall_us, prof):
     print(f"{title}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, "
           f"{len(kernels)} device events")
+    spans = sorted((e.time_range.start, e.time_range.end, "gae_" in e.name)
+                   for e in kernels)
+    gae = [(a, b) for a, b, g in spans if g]
+    shared = sum(any(a < e and s < b and (s, e) != (a, b)
+                     for s, e, _ in spans) for a, b in gae)
+    conc = sum(b - a for a, b, _ in spans) / busy_us
+    print(f"{title}: concurrency {conc:.3f} (kernel time / busy time); GAE "
+          f"launches overlapping another kernel: {shared} of {len(gae)}")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {us / 1e3:10.3f} ms  {us / wall_us:7.2%} of wall")
     print("top kernels:")
@@ -147,8 +164,38 @@ def _serve(args):
             *_profile(eng.step))
 
 
+def _gmis(args):
+    from repro_torch.core.placement import plan_tcg_ex_training
+    from repro_torch.envs import make_env
+    from repro_torch.launch.steps import (init_gmis, make_drl_train_step,
+                                          train_gmis)
+    from repro_torch.rl.ppo import PPOConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = args.gmi_per_gpu
+    env = make_env(args.env, megakernel=True, device="cuda")
+    step, cfg = make_drl_train_step(env, PPOConfig(
+        num_steps=args.rollout, lr=3e-4, use_fused_kernels=True))
+    grid = plan_tcg_ex_training(1, k, devices=list(range(k)),
+                                devices_per_gpu=k,
+                                device="cuda").manager.instance_mesh(
+                                    "holistic")
+
+    states = init_gmis(grid, env, args.num_env, args.seed,
+                       on_streams=args.dispatch == "streams")
+
+    def run(iters):
+        train_gmis(grid, env, step, cfg.num_steps, args.num_env, iters,
+                   dispatch=args.dispatch, states=states)
+    run(args.warmup)
+    _report(f"{args.env} {k} GMIs x {args.num_env // k} envs T="
+            f"{args.rollout} dispatch={args.dispatch}: iteration",
+            *_profile(lambda: run(1)))
+
+
 def main(argv=None):
     from repro_torch.envs import make_env
+    from repro_torch.launch.steps import DISPATCH_MODES
     from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
 
     ap = argparse.ArgumentParser()
@@ -162,9 +209,13 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=64)
+    ap.add_argument("--gmi-per-gpu", type=int, default=None)
+    ap.add_argument("--dispatch", choices=DISPATCH_MODES, default="streams")
     args = ap.parse_args(argv)
     if args.workload == "serve":
         return _serve(args)
+    if args.gmi_per_gpu is not None:
+        return _gmis(args)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     env = make_env(args.env, megakernel=True, device="cuda")

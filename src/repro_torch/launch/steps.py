@@ -1,0 +1,175 @@
+"""DRL step factories, port of the DRL half of ``repro/launch/steps.py``
+(``make_communicator``, ``make_drl_train_step``), plus the multi-GMI loop
+that the training launchers share (:func:`train_gmis`).
+
+The launcher, not the algorithm module, decides which hot path a step
+runs (the fused kernels by default) and how GMIs share the card: each GMI
+of an instance grid runs its PPO iteration under its own CUDA stream, and
+the params are averaged on the default stream after every iteration.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Optional
+
+import torch
+
+# how the host issues the GMIs' iterations: one thread in turn on their
+# own streams, or one thread in turn on the default stream (the
+# reference's loop)
+DISPATCH_MODES = ("streams", "sequential")
+
+
+def make_communicator(layout, cost_model=None, *, average: bool = True,
+                      with_mesh: bool = False, calibrate: bool = False):
+    """The layout's ``repro_torch.comm.Communicator``: instance grid off the
+    trainer MPL (incl. the trailing ``dev`` axis for multi-device GMIs),
+    strategy from Algorithm 1 — or Table-2 cost-scored when a
+    ``ReduceCostModel`` is supplied.  ``None`` for serving-only layouts.
+    ``calibrate=True`` attaches a ``BandwidthCalibrator`` so measured
+    reduce/transfer timings replace the model's static per-axis
+    bandwidth defaults once the Table-2 inversion is conditioned."""
+    comm = layout.communicator(cost_model, average=average,
+                               with_mesh=with_mesh)
+    if comm is not None and calibrate:
+        comm.enable_calibration()
+    return comm
+
+
+def make_drl_train_step(env, ppo_cfg=None, grad_sync_fn=None,
+                        fused: Optional[bool] = None, communicator=None):
+    """Sync-PPO iteration with the fused hot path on by default: the env
+    megakernel (with a megakernel env), the fused trunk, and the gae_scan
+    kernel (GAE + advantage normalization in one launch) with
+    single-gather minibatches.  An explicit ``ppo_cfg`` keeps its own
+    ``use_fused_kernels`` unless ``fused`` explicitly overrides it.
+    Gradient sync comes from ``communicator`` (a
+    ``repro_torch.comm.Communicator``) when given, else ``grad_sync_fn``.
+    Returns ``(step, cfg)``."""
+    from repro_torch.rl.ppo import PPOConfig, make_train_step
+    cfg = ppo_cfg if ppo_cfg is not None \
+        else PPOConfig(use_fused_kernels=True)
+    if fused is not None and fused != cfg.use_fused_kernels:
+        cfg = cfg._replace(use_fused_kernels=fused)
+    if communicator is not None and communicator.mesh is not None:
+        # a mesh-attached Communicator's sync closure is the collective one
+        # of a torch.distributed rank: failing here beats a missing-group
+        # error deep inside the first minibatch
+        raise TypeError(
+            "make_drl_train_step builds a per-instance step; a "
+            "mesh-attached Communicator's sync closure is SPMD-only (use "
+            "Communicator.allreduce over grid-stacked gradients, or a "
+            "mesh-less Communicator here)")
+    sync = communicator if communicator is not None else grad_sync_fn
+    return make_train_step(env, cfg, sync), cfg
+
+
+def init_gmis(grid, env, num_env: int, seed: int = 0, *,
+              on_streams: bool = True):
+    """Each GMI's PPO state for :func:`train_gmis`: GMI ``i`` (row-major
+    over the instance grid) holds ``[params, opt_state, env_state, obs]``
+    from ``init_train(seed + i)`` on ``num_env // n`` envs, drawn under its
+    own stream on the card unless ``on_streams`` is false."""
+    from repro_torch.rl.ppo import init_train
+    ctxs = list(grid.contexts)
+    n = len(ctxs)
+    states = []
+    for i, c in enumerate(ctxs):
+        with _scope(c, on_streams):
+            if on_streams and c.stream is not None:
+                # the env's constants
+                c.stream.wait_stream(torch.cuda.current_stream(grid.device))
+            states.append(list(init_train(seed + i, env,
+                                          env.spec.policy_dims,
+                                          num_envs=num_env // n,
+                                          device=grid.device)))
+    return states
+
+
+def _scope(ctx, on_streams):
+    return ctx.scope() if on_streams else contextlib.nullcontext()
+
+
+def train_gmis(grid, env, step, num_steps: int, num_env: int, iters: int,
+               seed: int = 0, *, dispatch: str = "streams",
+               log_every=None, states=None):
+    """Synchronous PPO over the GMIs of an instance grid
+    (``GMIManager.instance_mesh``): GMI ``i`` (row-major over the grid)
+    runs ``step`` (from :func:`make_drl_train_step`, ``num_steps`` env
+    steps an iteration) on ``num_env // n`` envs, and after every
+    iteration the params are averaged (equivalent to averaged gradients
+    for identical optimizer states).  ``states`` (from :func:`init_gmis`,
+    updated in place) carries the GMIs on from an earlier call; without it
+    they start from ``init_gmis(grid, env, num_env, seed)``.
+
+    ``dispatch`` (one of :data:`DISPATCH_MODES`) says how the host issues
+    the GMIs' iterations, one after another.  On the card each GMI's
+    stream first waits for the default stream (the averaged params), and
+    the default stream waits for every GMI's stream before it averages;
+    tensors read across streams are marked with ``record_stream``.  Every
+    GMI draws from its own generator, so both modes compute the same
+    params.
+
+    Returns a dict: ``params`` (the averaged params), ``metrics`` (each
+    iteration's per-GMI metrics, as floats), ``iter_s`` (each iteration's
+    wall seconds, synchronised) and ``steps_per_s`` (all iterations)."""
+    from repro_torch.utils import tree_leaves, tree_map
+    if dispatch not in DISPATCH_MODES:
+        raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, got "
+                         f"{dispatch!r}")
+    dev = grid.device
+    ctxs = list(grid.contexts)
+    n = len(ctxs)
+    on_streams = dispatch == "streams" and ctxs[0].stream is not None
+    streams = [c.stream for c in ctxs] if on_streams else [None] * n
+    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def sync():
+        if main is not None:
+            torch.cuda.synchronize(dev)
+
+    if states is None:
+        states = init_gmis(grid, env, num_env, seed, on_streams=on_streams)
+
+    def run(i):
+        with _scope(ctxs[i], on_streams):
+            if streams[i] is not None:
+                streams[i].wait_stream(main)      # the averaged params
+            out = step(*states[i])
+            states[i][:] = out[:5]
+            return out[5]
+
+    history, iter_s = [], []
+    sync()
+    t0 = time.perf_counter()
+    for it in range(iters):
+        ti = time.perf_counter()
+        metrics = [run(i) for i in range(n)]
+        for s in streams:
+            if s is not None:
+                main.wait_stream(s)
+        if n > 1:
+            params = [st[0] for st in states]
+            if on_streams:
+                for p in params:
+                    for x in tree_leaves(p):
+                        x.record_stream(main)
+            mean_p = tree_map(lambda *xs: sum(xs) / n, *params)
+            for i, s in enumerate(streams):
+                if s is not None:
+                    for x in tree_leaves(mean_p):
+                        x.record_stream(s)
+                states[i][0] = mean_p
+        sync()
+        iter_s.append(time.perf_counter() - ti)
+        history.append([{k: float(v) for k, v in m.items()}
+                        for m in metrics])
+        if log_every and it % log_every == 0:
+            done = (it + 1) * num_steps * num_env
+            rm = sum(m["reward_mean"] for m in history[-1]) / n
+            print(f"iter {it:4d} reward_mean={rm:8.3f} "
+                  f"steps/s={done / (time.perf_counter() - t0):,.0f}")
+    elapsed = time.perf_counter() - t0
+    return {"params": states[0][0], "metrics": history, "iter_s": iter_s,
+            "steps_per_s": iters * num_steps * num_env / elapsed}

@@ -1,63 +1,71 @@
-"""Training launcher (``--workload drl``): multi-instance synchronous PPO on
-the paper's Table-6 envs, port of ``repro/launch/train.py``.
+"""Training launcher (``--workload drl``): multi-GMI synchronous PPO on the
+paper's Table-6 envs, port of ``repro/launch/train.py``.
 
-Instances are data-parallel copies that each train on ``num_env / n_inst``
-envs; after every iteration their params are averaged (equivalent to
-averaged gradients for identical optimizer states).  The env steps on the
-env megakernel and PPO runs the fused GAE and acting-trunk kernels; on
-``--device cpu`` those run their plain PyTorch versions.
+It plans a TCG_EX layout of holistic GMIs, builds the layout's
+Communicator (Algorithm 1 picks the LGR strategy), prints both, and runs
+one PPO trainer per GMI, each GMI under its own CUDA stream on the card
+(``--dispatch sequential``: all on the default stream, in turn), averaging
+the params after every iteration.  The env steps on the env megakernel
+and PPO runs the fused GAE and acting-trunk kernels; on ``--device cpu``
+those run their plain PyTorch versions, one GMI after another.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --workload drl \
-      --env ShadowHand --num-gpus 1 --gmi-per-gpu 1 --num-env 16384 \
+      --env ShadowHand --num-gpus 1 --gmi-per-gpu 4 --num-env 16384 \
       --device cuda
 """
 from __future__ import annotations
 
 import argparse
-import time
+
+import torch
 
 
 def run_drl(args):
+    """Run the ``--workload drl`` path; returns :func:`train_gmis`'s dict
+    plus the layout's ``summary`` and ``strategy``."""
+    from repro_torch.core.placement import plan_tcg_ex_training
     from repro_torch.envs import make_env
-    from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
-    from repro_torch.utils import tree_map
+    from repro_torch.launch.steps import make_drl_train_step, train_gmis
+    from repro_torch.rl.ppo import PPOConfig
+    from repro_torch.utils import resolve_device
 
-    env = make_env(args.env, megakernel=True, device=args.device)
-    cfg = PPOConfig(num_steps=args.rollout, lr=3e-4, use_fused_kernels=True)
+    device = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     n_inst = args.num_gpus * args.gmi_per_gpu
-    states = []
-    for i in range(n_inst):
-        p, o, es, ob, gen = init_train(args.seed + i, env,
-                                       env.spec.policy_dims,
-                                       num_envs=args.num_env // n_inst,
-                                       device=args.device)
-        states.append([p, o, es, ob, gen])
-    step = make_train_step(env, cfg)
+    layout = plan_tcg_ex_training(
+        args.num_gpus, args.gmi_per_gpu,
+        devices=list(range(max(n_dev, n_inst))),
+        devices_per_gpu=args.gmi_per_gpu, device=device)
+    # the Communicator owns grid + strategy + grad-sync for this layout
+    # (Algorithm 1 selection); the per-GMI steps consume it, not a
+    # strategy string
+    comm = layout.communicator()
+    summary = layout.manager.summary()
+    print(summary)
+    print(f"LGR strategy (Algorithm 1 via repro_torch.comm): "
+          f"{comm.strategy}")
 
-    t0 = time.time()
-    total_steps = 0
-    for it in range(args.iters):
-        metrics = []
-        for s in states:
-            out = step(*s)
-            s[:] = out[:5]
-            metrics.append(out[5])
-        if n_inst > 1:
-            mean_p = tree_map(lambda *xs: sum(xs) / n_inst,
-                              *[s[0] for s in states])
-            for s in states:
-                s[0] = mean_p
-        total_steps += cfg.num_steps * args.num_env
-        if it % max(args.iters // 10, 1) == 0:
-            rm = sum(float(m["reward_mean"]) for m in metrics) / n_inst
-            print(f"iter {it:4d} reward_mean={rm:8.3f} "
-                  f"steps/s={total_steps / (time.time() - t0):,.0f}")
-    print(f"done: {total_steps:,} env steps in {time.time()-t0:.1f}s "
-          f"({total_steps/(time.time()-t0):,.0f} steps/s)")
+    env = make_env(args.env, megakernel=True, device=device)
+    cfg = PPOConfig(num_steps=args.rollout, lr=3e-4, use_fused_kernels=True)
+    # as in the reference, a single instance takes the communicator (its
+    # sync closure is the identity without a mesh); several stay
+    # consistent through the parameter average
+    step, cfg = make_drl_train_step(
+        env, cfg, communicator=comm if n_inst == 1 else None)
+    grid = layout.manager.instance_mesh("holistic")
+    print(f"{n_inst} GMIs on {grid.device}, dispatch={args.dispatch}")
+    out = train_gmis(grid, env, step, cfg.num_steps, args.num_env,
+                     args.iters, args.seed, dispatch=args.dispatch,
+                     log_every=max(args.iters // 10, 1))
+    total = args.iters * cfg.num_steps * args.num_env
+    print(f"done: {total:,} env steps in {sum(out['iter_s']):.1f}s "
+          f"({out['steps_per_s']:,.0f} steps/s)")
+    return dict(out, summary=summary, strategy=comm.strategy)
 
 
 def main(argv=None):
+    from repro_torch.launch.steps import DISPATCH_MODES
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=["drl"], default="drl")
     ap.add_argument("--env", default="Ant")
@@ -68,7 +76,8 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    run_drl(ap.parse_args(argv))
+    ap.add_argument("--dispatch", choices=DISPATCH_MODES, default="streams")
+    return run_drl(ap.parse_args(argv))
 
 
 if __name__ == "__main__":

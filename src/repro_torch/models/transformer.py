@@ -35,7 +35,7 @@ from repro_torch.models.attention import (PagedKVCache, attention,
 from repro_torch.models.layers import (embed, init_embedding, init_linear,
                                        init_mlp, init_rmsnorm, linear, mlp,
                                        rms_norm, softcap, unembed)
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window" sentinel, as in the reference
 
@@ -100,12 +100,13 @@ def _init_stacked(make, n: int):
     return out
 
 
-def init_model(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Random f32 params from ``seed`` with the reference's tree layout.
-    The draws differ from the reference's (``jax.random`` is not
-    reproducible here): parity tests carry the reference's params across
-    with ``interop.model_params``."""
+def init_model(seed: int, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+    """Random f32 params from ``seed`` with the reference's tree layout, on
+    the card unless ``device`` says otherwise.  The draws differ from the
+    reference's (``jax.random`` is not reproducible here): parity tests
+    carry the reference's params across with ``interop.model_params``."""
     check_supported(cfg)
+    device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
     params: Dict[str, Any] = {
         "final_norm": init_rmsnorm(cfg.d_model, device),

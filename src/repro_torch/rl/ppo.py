@@ -5,8 +5,8 @@ One ``train_iteration`` = experience collection (m simulator-agent rounds)
 + minibatched clipped-surrogate updates with Adam.  The loss runs
 ``policy_apply`` under autograd; with ``use_fused_kernels`` the acting
 trunk, the GAE and (with a megakernel env) the env step run on the CUDA
-kernels.  ``grad_sync_fn`` is a plain callable on the gradient dict,
-identity by default.
+kernels.  ``grad_sync_fn`` is a callable on the gradient dict or a
+``repro_torch.comm.Communicator``, identity by default.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.comm.api import as_grad_sync
 from repro_torch.models.policy import (entropy, log_prob, policy_apply,
                                        policy_apply_fused)
 from repro_torch.optim import AdamState, adam_init, adam_update
@@ -74,7 +75,9 @@ def train_iteration(params, opt_state: AdamState, env, env_state, obs,
     """One full PPO iteration.  Returns (params, opt_state, env_state, obs,
     gen, metrics).  Random draws come from ``gen`` unless the caller passes
     them: ``noise`` (T, N, act) for the action noise and ``perms``
-    (epochs, T*N) for the minibatch permutations."""
+    (epochs, T*N) for the minibatch permutations.  ``grad_sync_fn`` may be
+    a closure or a Communicator."""
+    grad_sync_fn = as_grad_sync(grad_sync_fn)
     act_fn = policy_apply_fused if (cfg.use_fused_kernels
                                     and policy_fn is policy_apply) \
         else policy_fn
@@ -128,7 +131,11 @@ def train_iteration(params, opt_state: AdamState, env, env_state, obs,
 
 def make_train_step(env, cfg: PPOConfig, grad_sync_fn=None,
                     policy_fn=policy_apply):
-    """A PPO iteration bound to an env instance and config."""
+    """A PPO iteration bound to an env instance and config.
+    ``grad_sync_fn`` may be a closure or a Communicator, resolved once
+    here."""
+    grad_sync_fn = as_grad_sync(grad_sync_fn)
+
     def step(params, opt_state, env_state, obs, gen, noise=None, perms=None):
         return train_iteration(params, opt_state, env, env_state, obs, gen,
                                cfg, grad_sync_fn, policy_fn, noise, perms)

@@ -203,15 +203,17 @@ def test_make_train_step_improves_reward_on_ballbalance():
 
 def _port_files():
     files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
-                                             "kernel_times.py")]
+                                             "kernel_times.py",
+                                             "gmi_probe.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """No module of the port, nor chip_smoke.py or kernel_times.py, imports
-    ``jax`` (or ``jaxlib``) or the JAX package ``repro``."""
+    """No module of the port, nor chip_smoke.py, kernel_times.py or
+    gmi_probe.py, imports ``jax`` (or ``jaxlib``) or the JAX package
+    ``repro``."""
     bad = []
     files = _port_files()
     assert len(files) > 20

@@ -18,7 +18,7 @@ from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.models import layers as JL
 from repro.models import transformer as JT
-from repro_torch import interop
+from repro_torch import interop, utils
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -53,7 +53,7 @@ def test_configs_are_copies(arch):
                                   "hubert-xlarge"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_model(0, get_reduced(arch))
+        TT.init_model(0, get_reduced(arch), device="cpu")
 
 
 def test_layers_match_reference(rng):
@@ -79,9 +79,20 @@ def test_layers_match_reference(rng):
             np.asarray(JL.mlp(jp, jnp.asarray(h), act)), atol=1e-5)
 
 
+def test_init_model_defaults_to_cuda():
+    """Without a card the default device raises rather than running on
+    the CPU, as ``make_env`` and ``init_train`` do; on the CPU when
+    asked."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TT.init_model(0, CFG)
+    p = TT.init_model(0, CFG, device="cpu")
+    assert {x.device.type for x in utils.tree_leaves(p)} == {"cpu"}
+
+
 def test_init_model_layout_matches_reference():
     """Same keys and shapes as the reference's tree (stacked layers)."""
-    mine = TT.init_model(0, CFG)
+    mine = TT.init_model(0, CFG, device="cpu")
     theirs = jax.eval_shape(lambda: JT.init_model(jax.random.key(0), JCFG))
     flat_m = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
               jax.tree_util.tree_flatten_with_path(mine)[0]}
@@ -198,7 +209,7 @@ def test_xlstm_layout_and_caches_match_reference():
     """``params["super"]`` keyed ``mlstm_0``/``slstm_1`` with a leading
     ``num_super`` dim, and the cache trees (f32 states, conv in the
     activation type), at the reduced and the full config."""
-    mine = TT.init_model(0, XCFG)
+    mine = TT.init_model(0, XCFG, device="cpu")
     theirs = jax.eval_shape(lambda: JT.init_model(jax.random.key(0), JXCFG))
     flat = lambda t: {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
                       jax.tree_util.tree_flatten_with_path(t)[0]}
