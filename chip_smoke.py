@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's five paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's six paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
-internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, and
-multi-GMI synchronous PPO (several GMIs on one card, one CUDA stream each).
+internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
+synchronous PPO (several GMIs on one card, one CUDA stream each), and
+async A3C under the fleet supervisor (faults, checkpoints) and the online
+GMI controller.
 
     python3 chip_smoke.py
 
@@ -21,8 +23,11 @@ each asserting, in order:
    card at its path's shapes (ShadowHand, N = 16384, a share of envs
    forced to reset; the env megakernel without and with ring writes; GAE
    and the n-step scan at T = 16, N = 16384; the trunk at 16384 x 211 ->
-   256; the env megakernel in both ring modes, the trunk and GAE also at
-   a GMI's share of phase 12's envs, N = 4096 and 8192; the ring pack of one A3C push, T = 16, N = 8192, slot 1 of 2, the
+   256; the env megakernel in both ring modes, the trunk, GAE and the
+   n-step scan also at a GMI's share of phase 12's envs, N = 4096 and
+   8192 (the n-step scan also at any other trainer batch shape of phase
+   12b (b) and (c), there); the ring pack of one A3C push, T = 16,
+   N = 8192, slot 1 of 2, the
    other slot a sentinel, bit-exact; paged decode attention in bf16 at
    internlm2-1.8b's decode shape, B = 8, 16 q heads on 8 kv heads, hd
    128, 8-token pages, 1024 positions, and at phase 11's, B = 4, 32 q
@@ -121,6 +126,32 @@ each asserting, in order:
    and print its trace and best config; launch the cooperative GAE kernel
    while another stream runs a GEMM chain (it must succeed and agree with
    its plain version; when it finished is printed);
+12b. drive async A3C under the fleet supervisor and the online
+   controller, the fault plan ``FLEET_EVENTS`` (a serving GMI killed,
+   a flush dropped, a save crashed before its manifest, a trainer GMI
+   killed, a flush poisoned, a finished pair torn; probation 2, a
+   checkpoint every 2 rounds, 6 rounds): (a) ``make_fleet_supervisor``
+   over ``plan_async(3, 2, 2)`` on logical GPUs, Ant, 8 envs a GMI,
+   T = 4, the push branch, on the card against the CPU with the same
+   noise: failures, recoveries, quarantines, checkpoint steps and
+   counters equal, params within 1e-5; (b) the same plan at full width,
+   ShadowHand, ``megakernel=True``, 4 serving GMIs x 4096 envs, T = 16:
+   trained + poisoned == predicted, the poisoned batch's update
+   discarded (the params the same tensors, bit-identical), ``restore``
+   skipping the torn step 6 for step 2 bit for bit, and the round
+   seconds supervised and unsupervised, checkpoint save and restore ms
+   and MB, and the device memory that live tensors hold after
+   ``finish`` (``live_cuda_bytes``) within 10% of the same fleet's with
+   no faults (ring storage a dropped or requeued payload kept must not
+   leak); (c) ``make_async_runner(..., overlap=True,
+   online_controller=True)`` at the same width, ladder (4096, 8192),
+   epochs of 2 rounds, 6 rounds: at least one probe re-plan (its ms
+   printed), lossless, the device memory that live tensors hold after
+   it within 10% of a run at 8192 with no re-plan; (a), (b) and (c)
+   each with the launch counters set to 0 just before and read just
+   after, exact (the env step a collected step on the direct branch, the
+   ring pack a push on the push branch, the n-step scan a trained or
+   discarded batch);
 13. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (flash at
    phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512 and at
@@ -192,6 +223,22 @@ GMI_SWEEP = [(1, "streams"), (2, "streams"), (4, "streams"),
 # the trunk and GAE at these too
 GMI_N = (N_MAIN // 4, N_MAIN // 2)
 GMI_SWEEP_ITERS = 4
+# phase 12b: the supervised fleet's fault schedule, (kind, round, mode),
+# one event of each runner-side kind; the failures it logs, in order (a
+# checkpoint's step is the count of rounds done, so the round-4 tear hits
+# the save after round index 3, before round 4's kill); the serving GMIs
+# that collect over its 6 rounds (4, none in the round the first one dies,
+# 2 and 2 while its GPU is quarantined, 4 and 4 after re-admission); envs
+# a serving GMI at full width; timed rounds a turn
+FLEET_EVENTS = [("kill_serving", 1, None), ("channel_drop", 2, None),
+                ("kill_trainer", 4, None), ("ckpt_tear", 4, "before_manifest"),
+                ("channel_poison", 5, None), ("ckpt_tear", 6, "torn_npz")]
+FLEET_KINDS = ["kill_serving", "channel_drop", "ckpt_tear", "kill_trainer",
+               "channel_poison", "ckpt_tear"]
+FLEET_ROUNDS = 6
+FLEET_COLLECTS = 4 + 0 + 2 + 2 + 4 + 4
+FLEET_N = N_MAIN // 4
+FLEET_TIMED = 5
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
 PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense, flop/s
@@ -251,6 +298,23 @@ def card_line() -> str:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def live_cuda_bytes() -> int:
+    """Bytes of the distinct CUDA storages that Python objects hold, after
+    a collection.  What a run still holds is read as the change in this,
+    not in ``torch.cuda.memory_allocated``: that also counts the slack of
+    cached blocks the allocator chose not to split, which depends on what
+    earlier phases left in its cache."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    seen = {}
+    for o in gc.get_objects():
+        if issubclass(type(o), torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def sass_report(build_dir, logs):
@@ -851,6 +915,335 @@ def gae_under_load(dev, gen):
                      f"{ev[0].elapsed_time(ev[1]):.3f} ms after")
     del b
     return lines
+
+
+# ------------------------------------------------- supervised async A3C ----
+def fleet_plan():
+    """Phase 12b's fault schedule: one event of each runner-side kind."""
+    from repro_torch.fault import FaultEvent, FaultPlan
+    return FaultPlan([FaultEvent(k, r, mode=m) for k, r, m in FLEET_EVENTS])
+
+
+def make_fleet(dev, env_name, n, T, megakernel, ckpt_dir=None, plan=True):
+    """``make_fleet_supervisor`` over ``plan_async(3, 2, 2)`` on logical
+    GPUs of one card (4 serving GMIs of ``n`` envs, 2 trainer GMIs), fused
+    kernels, probation 2, a checkpoint every 2 rounds into ``ckpt_dir``."""
+    from repro_torch.core.placement import plan_async
+    from repro_torch.envs import make_env
+    from repro_torch.launch.steps import make_fleet_supervisor
+    layout = plan_async(3, 2, 2, devices=list(range(6)), devices_per_gpu=2,
+                        device=dev)
+    return make_fleet_supervisor(
+        make_env(env_name, device=dev), layout,
+        plan=fleet_plan() if plan else None, num_envs=n, num_steps=T,
+        megakernel=megakernel, use_fused_kernels=True, probation=2,
+        ckpt_dir=ckpt_dir, ckpt_every=2 if ckpt_dir else 0, device=dev)
+
+
+def fleet_want(sup, direct):
+    """The exact launches of a supervised run, from its own accounting:
+    one env step a collected step on the direct branch, one ring pack a
+    push on the other, one n-step scan a trained or discarded batch."""
+    r = sup.runner
+    want = {k: 0 for k in TOL}
+    collects = r.predictions // (r.num_steps * r.num_envs)
+    want["env_mega_step" if direct else "pack_channels"] = \
+        collects * (r.num_steps if direct else 1)
+    want["nstep_returns"] = r.version + r.poisoned_batches
+    return want
+
+
+def check_fleet_parity(dev):
+    """Phase 12b (a): the supervised fleet on the card against the same
+    fleet on the CPU (Ant, 8 envs a GMI, T = 4, the push branch: ring pack
+    and n-step kernels), the same fault plan and noise.  Params and Adam
+    state are copied from the CPU side once, before round 0; env states
+    and observations are copied again after each re-plan, since the two
+    devices' generators draw different resets.  Logs and counters equal,
+    params within 1e-5; the card run's launches are exact and are
+    returned for ``by_path``."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.utils import tree_leaves, tree_map
+    n, T = 8, 4
+    dirs = {d: tempfile.mkdtemp(prefix="fleet_") for d in ("cpu", "card")}
+    cpu = make_fleet("cpu", "Ant", n, T, False, dirs["cpu"])
+    card = make_fleet(dev, "Ant", n, T, False, dirs["card"])
+    cr, gr = cpu.runner, card.runner
+    mv = lambda x: tree_map(lambda t: t.to(dev), x)
+    gr.params = gr.actor_params = mv(cr.params)
+    gr.opt_state = mv(cr.opt_state)
+
+    def carry():
+        for a, (es, obs, _) in cr.actors.items():
+            gr.actors[a] = [mv(es), obs.to(dev), gr.actors[a][2]]
+
+    carry()
+    p0 = [t.clone() for t in tree_leaves(cr.params)]
+    g = torch.Generator("cpu").manual_seed(2)
+    act = cr.env.spec.act_dim
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for _ in range(FLEET_ROUNDS):
+        noise = {a: torch.randn((T, n, act), generator=g)
+                 for a in cr.serving_gmis}
+        replans = cr.replans
+        lc, sc = cpu.round(noise)
+        lg, sg = card.round({a: x.to(dev) for a, x in noise.items()})
+        assert sc == sg, (sc, sg)
+        assert len(lc) == len(lg) and all(
+            abs(a - b) <= 1e-4 for a, b in zip(lc, lg)), (lc, lg)
+        assert gr.replans == cr.replans
+        if cr.replans != replans:
+            carry()
+    lc, sc = cr.finish()
+    lg, sg = gr.finish()
+    assert sc == sg and all(abs(a - b) <= 1e-4 for a, b in zip(lc, lg))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for k in ("failures", "recoveries", "quarantined", "ckpt_steps",
+              "num_gpu", "serving_gpus"):
+        assert getattr(card, k) == getattr(cpu, k), (k, getattr(card, k),
+                                                     getattr(cpu, k))
+    counters = ("predictions", "trained_samples", "poisoned_batches",
+                "poisoned_samples", "replans", "version")
+    for k in counters:
+        assert getattr(gr, k) == getattr(cr, k), (k, getattr(gr, k),
+                                                  getattr(cr, k))
+    for k in ("dropped_flushes", "poisoned_flushes", "delivered_samples"):
+        assert getattr(gr.pipe, k) == getattr(cr.pipe, k), k
+    assert [f["kind"] for f in card.failures] == FLEET_KINDS, card.failures
+    assert any(r["kind"] == "readmit" for r in card.recoveries)
+    assert gr.trained_samples + gr.poisoned_samples == gr.predictions
+    moved = max(max_err(a, b) for a, b in zip(tree_leaves(cr.params), p0))
+    assert moved > 1e-4, ("no update on the CPU", moved)
+    perr = max(max_err(a, b.cpu()) for a, b in zip(
+        tree_leaves(cr.params), tree_leaves(gr.params)))
+    assert perr <= 1e-5, perr
+    want = fleet_want(card, direct=False)
+    assert launches == want, (launches, want)
+    for d in dirs.values():
+        shutil.rmtree(d)
+    return launches, perr, moved, {k: getattr(gr, k) for k in counters}, card
+
+
+def run_fleet(dev):
+    """Phase 12b (b): the supervised fleet at full width: ShadowHand,
+    ``megakernel=True`` (direct produce into the ring), 4 serving GMIs x
+    FLEET_N envs, T = 16, a checkpoint every 2 rounds into a temp dir,
+    the fault plan of (a), with the launch counters set to 0 just before
+    and read just after.  Asserts lossless accounting, that the poisoned
+    batch left the params the very tensors (and values) they were, and
+    that ``restore`` skips the torn step 6 for step 2 and reads its params
+    bit for bit.  Also returns the device memory its live tensors hold after
+    ``finish`` (the runner alive, relative to before it) and the (T, N) of
+    every batch the n-step scan saw."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.rl import a3c
+    from repro_torch.utils import tree_leaves
+    d = tempfile.mkdtemp(prefix="fleet_")
+    base = live_cuda_bytes()
+    sup = make_fleet(dev, ENV, FLEET_N, T_MAIN, True, d)
+    r = sup.runner
+    calls, saved, save_ms, shapes = [], {}, [], set()
+    update = a3c.trainer_update
+
+    def spy(params, opt_state, exp, **kw):
+        out = update(params, opt_state, exp, **kw)
+        shapes.add(tuple(exp.rewards.shape))
+        calls.append((params, [t.cpu() for t in tree_leaves(params)],
+                      bool(torch.isfinite(out[2]))))
+        return out
+
+    checkpoint = r.checkpoint
+
+    def timed_checkpoint(directory, step=None, fault_hook=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint(directory, step=step, fault_hook=fault_hook)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        saved[step] = ([t.cpu() for t in tree_leaves(r.params)],
+                       r.rounds, r.version, r.trained_samples)
+        return path
+
+    r.checkpoint = timed_checkpoint
+    a3c.trainer_update = spy
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    round_s = []
+    try:
+        for _ in range(FLEET_ROUNDS):
+            t0 = time.perf_counter()
+            sup.round()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+        r.finish()
+        torch.cuda.synchronize()
+    finally:
+        a3c.trainer_update = update
+    launches = dict(ops.LAUNCHES)
+    want = fleet_want(sup, direct=True)
+    assert launches == want, (launches, want)
+    assert r.predictions == FLEET_COLLECTS * T_MAIN * FLEET_N, r.predictions
+    assert r.trained_samples + r.poisoned_samples == r.predictions, (
+        r.trained_samples, r.poisoned_samples, r.predictions)
+    assert [f["kind"] for f in sup.failures] == FLEET_KINDS, sup.failures
+    assert any(x["kind"] == "readmit" for x in sup.recoveries)
+    assert r.poisoned_batches == 1 and len(calls) == want["nstep_returns"]
+    bad = [i for i, c in enumerate(calls) if not c[2]]
+    assert len(bad) == 1, bad
+    i = bad[0]
+    after = calls[i + 1][0] if i + 1 < len(calls) else r.params
+    assert after is calls[i][0], "the poisoned update was not discarded"
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(after),
+                                                       calls[i][1]))
+    assert all(bool(p.isfinite().all()) for p in tree_leaves(r.params))
+    # the spy's references keep old params generations alive: drop them
+    # before reading what the run itself holds
+    del after, calls
+    held = live_cuda_bytes() - base
+    assert sup.ckpt_steps == [2, 6], sup.ckpt_steps
+    from repro_torch.checkpoint import ckpt
+    assert ckpt.steps(d) == [2, 6]
+    from repro_torch.launch.steps import make_async_runner
+    fresh = make_async_runner(r.env, sup.layout, num_envs=FLEET_N,
+                              num_steps=T_MAIN, use_fused_kernels=True,
+                              device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = fresh.restore(d)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    assert step == 2, step
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(fresh.params), saved[2][0]))
+    assert (fresh.rounds, fresh.version, fresh.trained_samples) \
+        == saved[2][1:], (fresh.rounds, fresh.version, saved[2][1:])
+    mb = os.path.getsize(os.path.join(d, "ckpt_2.npz")) / 1e6
+    shutil.rmtree(d)
+    return launches, round_s, save_ms, restore_ms, mb, held, shapes, sup
+
+
+def fleet_held_without_faults(dev):
+    """Phase 12b (b)'s yardstick: the device memory that live tensors of
+    the same blocking fleet, with no fault plan and no checkpoints, still
+    hold after FLEET_ROUNDS rounds and ``finish`` (the runner alive,
+    relative to before it).  The faulted run must hold no more than 10% over it:
+    ring storage that a dropped or requeued payload kept must not leak."""
+    base = live_cuda_bytes()
+    sup = make_fleet(dev, ENV, FLEET_N, T_MAIN, True, plan=False)
+    for _ in range(FLEET_ROUNDS):
+        sup.round()
+    sup.runner.finish()
+    assert sup.runner.trained_samples == sup.runner.predictions
+    held = live_cuda_bytes() - base
+    del sup
+    return held
+
+
+def time_fleet_rounds(dev):
+    """Phase 12b: round seconds of the full-width fleet with no fault plan,
+    supervised (hooks armed, the non-finite guard's one read a batch)
+    against the same runner unsupervised (``make_async_runner``), in turns
+    unsupervised, supervised, supervised, unsupervised, FLEET_TIMED rounds
+    a turn after a warm-up round each."""
+    from repro_torch.launch.steps import make_async_runner
+    sup = make_fleet(dev, ENV, FLEET_N, T_MAIN, True, plan=False)
+    runs = {"supervised": sup,
+            "unsupervised": make_async_runner(
+                sup.runner.env, sup.layout, num_envs=FLEET_N,
+                num_steps=T_MAIN, use_fused_kernels=True, device=dev)}
+    out = {k: [] for k in runs}
+    for k in runs:
+        runs[k].round()
+    for k in ("unsupervised", "supervised", "supervised", "unsupervised"):
+        for _ in range(FLEET_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[k].round()
+            torch.cuda.synchronize()
+            out[k].append(time.perf_counter() - t0)
+    return out
+
+
+def run_controller(dev):
+    """Phase 12b (c): ``make_async_runner(..., overlap=True,
+    online_controller=True)`` at full width (ShadowHand, megakernel env,
+    4 serving GMIs from FLEET_N envs, T = 16, ladder (4096, 8192), epochs
+    of 2 rounds) for 6 rounds and ``finish``, the launch counters set to 0
+    just before and read just after; then a run with no controller at
+    the larger N.  The device memory that live tensors hold after each
+    (runner alive, relative to before it) must agree within 10%: dropped
+    rings must not leak.
+    Also returns the (T, N) of every batch the n-step scan saw."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.placement import plan_async
+    from repro_torch.envs import make_env
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_async_runner
+    from repro_torch.rl import a3c
+    held, out, shapes = {}, {}, set()
+    update = a3c.trainer_update
+
+    def spy(params, opt_state, exp, **kw):
+        shapes.add(tuple(exp.rewards.shape))
+        return update(params, opt_state, exp, **kw)
+    for name, n, online in (("controller", FLEET_N, True),
+                            ("fixed", 2 * FLEET_N, False)):
+        base = live_cuda_bytes()
+        layout = plan_async(3, 2, 2, devices=list(range(6)),
+                            devices_per_gpu=2, device=dev)
+        runner = make_async_runner(
+            make_env(ENV, megakernel=True, device=dev), layout, overlap=True,
+            online_controller=online,
+            controller_cfg=ControllerConfig(
+                epoch_rounds=2, occ_low=0.0,
+                num_env_sweep=(FLEET_N, 2 * FLEET_N)),
+            num_envs=n, num_steps=T_MAIN, use_fused_kernels=True,
+            device=dev)
+        replan_ms = []
+        if online:
+            replan = runner.replan
+
+            def timed_replan(decision, layout=None, replan=replan):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lay = replan(decision, layout)
+                torch.cuda.synchronize()
+                replan_ms.append((time.perf_counter() - t0) * 1e3)
+                return lay
+
+            runner.replan = timed_replan
+        a3c.trainer_update = spy
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        collects = 0
+        try:
+            for _ in range(6):
+                collects += len(runner.serving_gmis)
+                runner.round()
+            runner.finish()
+            torch.cuda.synchronize()
+        finally:
+            a3c.trainer_update = update
+        launches = dict(ops.LAUNCHES)
+        held[name] = live_cuda_bytes() - base
+        assert runner.trained_samples == runner.predictions
+        want = {k: 0 for k in TOL}
+        want.update({"env_mega_step": collects * T_MAIN,
+                     "nstep_returns": runner.version})
+        assert launches == want, (name, launches, want)
+        out[name] = (launches, replan_ms, runner)
+        del runner
+    launches, replan_ms, runner = out["controller"]
+    decisions = runner.controller.decisions
+    assert runner.replans >= 1 and any("probe" in x.reason
+                                       for x in decisions), decisions
+    assert held["controller"] <= 1.1 * held["fixed"], held
+    return launches, replan_ms, held, shapes, runner
 
 
 # ---------------------------------------------------------- attention ----
@@ -1511,7 +1904,8 @@ def main() -> int:
                         for n in (N_MAIN,) + GMI_N),
         "policy_mlp": max(check_trunk(trunk_dims, n, gen, dev)
                           for n in (N_MAIN,) + GMI_N),
-        "nstep_returns": check_nstep(T_MAIN, N_MAIN, gen, dev),
+        "nstep_returns": max(check_nstep(T_MAIN, n, gen, dev)
+                             for n in (N_MAIN,) + GMI_N),
         "pack_channels": check_pack(T_MAIN, N_A3C, spec, gen, dev, 3),
     }
     bf = torch.bfloat16
@@ -1555,8 +1949,9 @@ def main() -> int:
         if k == "mlstm_chunkwise":
             tol = f"tol {TOL[k]:g} of each output's largest magnitude"
         print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} ({tol})")
-    print(f"[check] env_mega_step (both ring modes), policy_mlp and gae_norm "
-          f"main-path shapes include a GMI's N = {GMI_N[0]} and {GMI_N[1]}")
+    print(f"[check] env_mega_step (both ring modes), policy_mlp, gae_norm "
+          f"and nstep_returns main-path shapes include a GMI's N = "
+          f"{GMI_N[0]} and {GMI_N[1]}")
     f32 = torch.float32
     for kw in (dict(), dict(window=37, softcap=5.0)):
         a = paged_inputs(5, 8, 4, 64, 16, 9, [130, -1, 17, 0, 143], gen, dev,
@@ -1747,6 +2142,74 @@ def main() -> int:
     for line in gae_under_load(dev, gen):
         print(line)
     print(f"[gmi] phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # 12b. supervised async A3C: faults, checkpoints, online controller ---
+    t12b = time.perf_counter()
+    la, perr, moved, counters, small = check_fleet_parity(dev)
+    by_path["a3c_fleet_small"] = la
+    print(f"[fleet] (a) supervised fleet card vs CPU: Ant, plan_async(3, 2, "
+          f"2) on logical GPUs, 8 envs a GMI, T=4, push branch, plan "
+          f"{FLEET_EVENTS}, probation 2, a checkpoint every 2 rounds: "
+          f"failures {[f['kind'] for f in small.failures]}, recoveries "
+          f"{[r['kind'] for r in small.recoveries]}, ckpt_steps "
+          f"{small.ckpt_steps}, counters {counters}, all equal to the "
+          f"CPU's; params max_abs_err={perr:.3g} (tol 1e-5; largest update "
+          f"{moved:.3g}); launches {la}")
+    la, round_s, save_ms, restore_ms, mb, held_b, shapes, sup = \
+        run_fleet(dev)
+    by_path["a3c_fleet"] = la
+    held_0 = fleet_held_without_faults(dev)
+    assert held_b <= 1.1 * held_0, (held_b, held_0)
+    r = sup.runner
+    print(f"[fleet] (b) {ENV} megakernel, 4 serving GMIs x {FLEET_N} envs, "
+          f"T={T_MAIN}, the same plan: per-round s "
+          f"{[round(x, 4) for x in round_s]}; predictions {r.predictions:,} "
+          f"== trained {r.trained_samples:,} + poisoned "
+          f"{r.poisoned_samples:,}; the poisoned batch's update discarded "
+          f"(params the same tensors, bit-identical); restore skipped torn "
+          f"step 6 for step 2, params bit-identical; launches {la}; "
+          f"device memory live tensors hold after finish {held_b / 2**20:.1f} MiB "
+          f"against {held_0 / 2**20:.1f} MiB for the same fleet with no "
+          f"faults (tol 10%)")
+    print(f"[fleet] checkpoint of the {ENV} tree (params, Adam mu and nu, "
+          f"version): {mb:.3f} MB, save ms {[round(x, 3) for x in save_ms]}"
+          f" (steps 2 and 6; step 4 crashed before its manifest), restore "
+          f"{restore_ms:.3f} ms (reading torn step 6, then step 2)")
+    times = time_fleet_rounds(dev)
+    print(f"[fleet] round s with no faults, {FLEET_TIMED} rounds a turn "
+          f"(unsupervised, supervised, supervised, unsupervised): "
+          + "; ".join(f"{k} {[round(x, 4) for x in v]} (median "
+                      f"{sorted(v)[len(v) // 2]:.4f})"
+                      for k, v in times.items()))
+    del sup, r
+    la, replan_ms, held, shapes_c, runner = run_controller(dev)
+    by_path["a3c_controller"] = la
+    # the n-step scan at every trainer batch shape of (b) and (c), those
+    # phase 2 did not hold already included
+    shapes |= shapes_c
+    held_2 = {(T_MAIN, n) for n in (N_MAIN,) + GMI_N}
+    e_fleet = max([check_nstep(T, n, gen, dev)
+                   for T, n in sorted(shapes - held_2)], default=0.0)
+    errs["nstep_returns"] = max(errs["nstep_returns"], e_fleet)
+    print(f"[check] nstep_returns at the trainer batches' (T, N) of (b) and "
+          f"(c) {sorted(shapes)}: held in phase 2 or here, max_abs_err="
+          f"{errs['nstep_returns']:.3g} (tol {TOL['nstep_returns']:g})")
+    print(f"[fleet] (c) online controller, overlap, {ENV} 4 serving GMIs, "
+          f"ladder ({FLEET_N}, {2 * FLEET_N}), epochs of 2 rounds, 6 "
+          f"rounds: {runner.replans} re-plan(s), re-plan ms "
+          f"{[round(x, 3) for x in replan_ms]}, trained == predicted == "
+          f"{runner.predictions:,}; device memory live tensors hold after "
+          f"{held['controller'] / 2**20:.1f} MiB against "
+          f"{held['fixed'] / 2**20:.1f} MiB for a run at N={2 * FLEET_N} "
+          f"with no re-plan (tol 10%); launches {la}")
+    for line in runner.controller.summary().splitlines():
+        print(f"[fleet] {line}")
+    for x in runner.controller.decisions:
+        print(f"[fleet]   re-plan: {x.reason} -> serving_gpus="
+              f"{x.serving_gpus}, gmi_per_gpu={x.gmi_per_gpu}, "
+              f"num_env={x.num_env}")
+    del runner
+    print(f"[fleet] phase 12b took {time.perf_counter() - t12b:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------

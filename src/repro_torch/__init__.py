@@ -9,7 +9,12 @@ control plane and LGR (``core/gmi.py``, ``core/placement.py``,
 ``core/selection.py``, ``comm/``, ``launch/train.py``; GMIs of one
 process share the card, one CUDA stream each), asynchronous A3C
 over the MCC experience ring (``rl/a3c.py``, ``core/channels.py``,
-``launch/async_a3c.py``), and the paged LLM serving engine
+``launch/async_a3c.py``) with its online GMI controller
+(``core/controller.py``), fault injection and fleet supervision
+(``fault/inject.py``, ``fault/supervisor.py``) and atomic checkpoints in
+the reference's file format (``checkpoint/ckpt.py``), built by
+``launch/steps.py``'s ``make_async_runner`` and
+``make_fleet_supervisor``, and the paged LLM serving engine
 (``serve/engine.py``, ``launch/serve.py``) over the dense model stack
 (``models/transformer.py``) and over xlstm's mLSTM and sLSTM blocks
 (``models/ssm.py``).  Their eight kernels (env megakernel, fused GAE,

@@ -6,8 +6,12 @@
 # channels.py   — channel-based experience sharing MCC (§4.2), device-
 #                 resident rings packed by the pack_channels kernel
 # selection.py  — workload-aware GMI selection, Algorithm 2 (§5.2)
+# controller.py — online GMI management: Algorithm 2 at run time over
+#                 measured rounds and serving loads
 # cost_model.py — analytical models, Tables 2/4/5 (+3-level HAR), Eqs. 1-3
-from repro_torch.core import (channels, cost_model, gmi,  # noqa: F401
-                              placement, selection)
+from repro_torch.core import (channels, controller,  # noqa: F401
+                              cost_model, gmi, placement, selection)
+from repro_torch.core.controller import (ControllerConfig,  # noqa: F401
+                                         OnlineGMIController)
 from repro_torch.core.gmi import DRLRole, GMI, GMIManager  # noqa: F401
 from repro_torch.core.placement import select_reduction_strategy  # noqa: F401

@@ -39,6 +39,14 @@ empties both generations: no sample is lost or duplicated under any
 interleaving of pushes and flushes.  The serve/train overlap itself is
 modeled by dispatch order on one stream, as in the reference.
 
+Fault seams (``repro_torch.fault``): ``MultiChannelPipeline.fault_hook``
+may drop a group's flush (it re-enters ``_pending`` and is retransmitted
+by the next flush; ``drain`` takes up to 8 extra flushes for them) or
+poison it (NaN rewards, for the trainer's non-finite guard), and
+``requeue`` puts a dead trainer's unconsumed batches back into
+``_pending``.  A dropped or requeued payload keeps the storage its
+snapshot handed over, which no ring holds any more.
+
 ``TransferStats`` counts one transfer per channel per routed group.  On a
 single-group layout (no placement map; the Table-8 configuration) that is
 one transfer per channel per flush, comparable with the UCC baseline
@@ -364,6 +372,15 @@ class MultiChannelPipeline:
                  ring_slots: Optional[int] = None,
                  overlap: bool = False):
         self.agent_gmis = list(agent_gmis)
+        # fault-injection seam (repro_torch.fault): called once per
+        # delivering group at flush time with (group_key, channels); may
+        # answer "drop" (lost in transit: the pipeline RETRANSMITS it on
+        # the next flush, so spill-not-drop survives a lossy link) or
+        # "poison" (delivered corrupted: the trainer-side non-finite guard
+        # must catch it)
+        self.fault_hook = None
+        self.dropped_flushes = 0
+        self.poisoned_flushes = 0
         self.gmi_gpu = gmi_gpu or {}
         self.compressor = Compressor()
         self.migrator = Migrator(trainer_gmis, gmi_gpu)
@@ -463,6 +480,24 @@ class MultiChannelPipeline:
             groups, self._inflight = self._inflight, current
         else:
             groups = current
+        if self.fault_hook is not None and groups:
+            kept = []
+            for gkey, ch in groups:
+                action = self.fault_hook(gkey, ch)
+                if action == "drop":
+                    # lost in transit: back into pending for the next
+                    # flush (retransmission).  The payload keeps the
+                    # storage its snapshot handed over; the ring already
+                    # let go of it, so no later push can write into it
+                    self._pending.setdefault(gkey, []).append(ch)
+                    self.dropped_flushes += 1
+                elif action == "poison":
+                    from repro_torch.fault.inject import poison_channels
+                    kept.append((gkey, poison_channels(ch)))
+                    self.poisoned_flushes += 1
+                else:
+                    kept.append((gkey, ch))
+            groups = kept
         if not groups:
             return {}
         bytes_before = self.compressor.stats.total_bytes
@@ -486,12 +521,29 @@ class MultiChannelPipeline:
         samples, self._transfer_samples = self._transfer_samples, []
         return samples
 
+    def requeue(self, exps: Sequence[Experience]) -> None:
+        """Put consumed-but-untrained experience back into the delivery
+        stream (spill-not-drop for a trainer dying mid-update): the
+        batches rejoin ``_pending`` in order and re-deliver, re-routed by
+        the Migrator, at the next flush.  Each keeps the storage its
+        snapshot handed to the consumer."""
+        for exp in exps:
+            self._pending.setdefault(-1, []).append(_payloads(exp))
+
     def drain(self) -> Dict[int, List[Experience]]:
         """Pipeline-ending flush: deliver the in-flight back buffers AND
         any still-buffered front pushes (two swap steps in overlap mode,
-        one plain flush otherwise)."""
+        one plain flush otherwise).  Extra rounds cover retransmissions
+        (dropped flushes re-entering ``_pending``), at most 8, so a hook
+        that drops everything forever cannot livelock the drain."""
         out: Dict[int, List[Experience]] = {}
         for _ in range(2 if self.overlap else 1):
+            for dst, bs in self.flush().items():
+                out.setdefault(dst, []).extend(bs)
+        guard = 0
+        while guard < 8 and (self._pending or self._inflight
+                             or any(r.count for r in self._rings.values())):
+            guard += 1
             for dst, bs in self.flush().items():
                 out.setdefault(dst, []).extend(bs)
         return out

@@ -1,6 +1,8 @@
 """DRL step factories, port of the DRL half of ``repro/launch/steps.py``
-(``make_communicator``, ``make_drl_train_step``), plus the multi-GMI loop
-that the training launchers share (:func:`train_gmis`).
+(``make_communicator``, ``make_drl_train_step``, the async factories
+``make_experience_pipeline``, ``make_online_controller``,
+``make_async_runner`` and ``make_fleet_supervisor``), plus the multi-GMI
+loop that the training launchers share (:func:`train_gmis`).
 
 The launcher, not the algorithm module, decides which hot path a step
 runs (the fused kernels by default) and how GMIs share the card: each GMI
@@ -173,3 +175,115 @@ def train_gmis(grid, env, step, num_steps: int, num_env: int, iters: int,
     elapsed = time.perf_counter() - t0
     return {"params": states[0][0], "metrics": history, "iter_s": iter_s,
             "steps_per_s": iters * num_steps * num_env / elapsed}
+
+
+def make_experience_pipeline(layout, batch_mode: str = "stack",
+                             batch_envs: Optional[int] = None,
+                             overlap: bool = False):
+    """Device-resident MCC pipeline wired from an async placement layout:
+    ring slots sized to the layout's serving GMIs and the per-GMI GPU map
+    passed through so the Migrator can direct-forward same-GPU groups.
+    ``overlap=True`` double-buffers the rings so a flush is a buffer swap
+    (paper §4.1 serve/train overlap)."""
+    from repro_torch.core.channels import MultiChannelPipeline
+    gmi_gpu = {g.gmi_id: g.gpu_id for g in layout.manager.gmis.values()}
+    return MultiChannelPipeline(layout.serving_gmis, layout.trainer_gmis,
+                                gmi_gpu=gmi_gpu, batch_mode=batch_mode,
+                                batch_envs=batch_envs, overlap=overlap)
+
+
+def make_online_controller(layout, num_env: int, controller_cfg=None,
+                           communicator=None):
+    """Online Algorithm-2 controller seeded from an async placement
+    layout: the live (serving_gpus, gmi_per_gpu, num_env) become the first
+    measured configuration; the controller then re-plans the layout
+    between training epochs from measured throughput and ring occupancy
+    (``repro_torch.core.controller``).  With a ``communicator`` attached,
+    measured reduce times can also re-plan the LGR strategy."""
+    from repro_torch.core.controller import OnlineGMIController
+    gmis = layout.manager.gmis.values()
+    serving_gpus = {g.gpu_id for g in gmis if g.role == "serving"}
+    all_gpus = {g.gpu_id for g in gmis}
+    per_gpu = {}
+    for g in gmis:
+        per_gpu[g.gpu_id] = per_gpu.get(g.gpu_id, 0) + 1
+    return OnlineGMIController(
+        num_gpu=len(all_gpus), serving_gpus=max(len(serving_gpus), 1),
+        gmi_per_gpu=max(per_gpu.values()), num_env=num_env,
+        cfg=controller_cfg, communicator=communicator)
+
+
+def make_async_runner(env, layout, overlap: bool = False,
+                      online_controller: bool = False,
+                      controller_cfg=None, communicator=None,
+                      calibrate: bool = False, megakernel: bool = False,
+                      device="cuda", **kwargs):
+    """Async A3C runner over ``make_experience_pipeline(layout)`` on
+    ``device`` (``env`` must live there).
+
+    ``megakernel=True`` puts the env on the fused env step
+    (``VectorEnv.with_megakernel``); on a blocking pipeline the runner
+    then produces experience straight into the ring slots
+    (``rl.rollout.collect_ring``).  ``overlap=True`` runs the
+    double-buffered pipeline; ``online_controller=True`` attaches an
+    Algorithm-2 controller that re-plans the layout between epochs from
+    live stats.  ``communicator=True`` builds the layout's Communicator;
+    an explicit one is used as-is.  ``calibrate=True`` enables
+    measured-bandwidth calibration on the communicator (building one from
+    the layout if none was asked for).  ``kwargs`` go to ``AsyncRunner``
+    (``num_envs``, ``num_steps``, ``seed``, ``lr``,
+    ``use_fused_kernels``)."""
+    from repro_torch.rl.a3c import AsyncRunner
+    if megakernel:
+        env = env.with_megakernel(True)
+    if communicator is True or (calibrate and communicator is None):
+        communicator = make_communicator(layout, calibrate=calibrate)
+    elif calibrate and communicator is not None:
+        communicator.enable_calibration()
+    controller = None
+    layout_builder = None
+    if online_controller:
+        controller = make_online_controller(
+            layout, num_env=kwargs.get("num_envs", 64),
+            controller_cfg=controller_cfg, communicator=communicator)
+        mgr = layout.manager
+
+        def layout_builder(decision):
+            # re-plan inside the SAME device universe the seed layout was
+            # built over (logical ids on one card)
+            from repro_torch.core.placement import plan_async
+            return plan_async(controller.num_gpu, decision.serving_gpus,
+                              decision.gmi_per_gpu, devices=mgr.devices,
+                              devices_per_gpu=mgr.devices_per_gpu,
+                              device=mgr.device)
+
+    return AsyncRunner(env, layout.serving_gmis, layout.trainer_gmis,
+                       pipeline=make_experience_pipeline(layout,
+                                                         overlap=overlap),
+                       overlap=overlap, controller=controller,
+                       layout_builder=layout_builder,
+                       communicator=communicator or None, device=device,
+                       **kwargs)
+
+
+def make_fleet_supervisor(env, layout, *, plan=None, router=None,
+                          ckpt_dir: Optional[str] = None,
+                          ckpt_every: int = 0, probation: int = 2,
+                          overlap: bool = False,
+                          online_controller: bool = False, **kwargs):
+    """Fault-tolerant fleet over an async placement layout: a
+    :func:`make_async_runner` runner wrapped in a
+    :class:`repro_torch.fault.FleetSupervisor` — injection hooks armed at
+    every seam, per-round failure classification, GPU quarantine with
+    probation-gated re-admission, lossless re-plans onto the surviving
+    pool, and (with ``ckpt_dir``/``ckpt_every``) periodic preemption-safe
+    checkpoints.  ``plan`` is an optional
+    :class:`repro_torch.fault.FaultPlan`; ``kwargs`` go to
+    :func:`make_async_runner` (``device`` among them).  A serving front
+    (``router=``) is ROADMAP item 17: the runner refuses it."""
+    from repro_torch.fault import FleetSupervisor
+    runner = make_async_runner(env, layout, overlap=overlap,
+                               online_controller=online_controller,
+                               router=router, **kwargs)
+    return FleetSupervisor(runner, layout, plan=plan, ckpt_dir=ckpt_dir,
+                           ckpt_every=ckpt_every, probation=probation)
