@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's six paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's seven paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
 internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
-synchronous PPO (several GMIs on one card, one CUDA stream each), and
-async A3C under the fleet supervisor (faults, checkpoints) and the online
-GMI controller.
+synchronous PPO (several GMIs on one card, one CUDA stream each), async
+A3C under the fleet supervisor (faults, checkpoints) and the online GMI
+controller, and disaggregated prefill/decode serving over GMIs with cache
+migration, under the same supervisor and controller.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,8 @@ each asserting, in order:
    128, 8-token pages, 1024 positions, and at phase 11's, B = 4, 32 q
    heads on 8 kv heads, hd 160, positions 543 and 159 (8 splits, as in
    the run); flash attention in bf16 at the prefill shapes of phase 8, at
-   the launcher's eight 512-token prompts and at phase 11's two
+   the launcher's eight 512-token prompts, at phase 14's prefill GMI's
+   whole-prompt B = 1 x 896 and at phase 11's two
    dispatches, 2 x 512 and 2 x 128 at stablelm-12b's heads; paged decode
    calls queued back to back at B = 8, 1 and 4 (4, 32 and 8 splits) and
    two at once on two streams; chunkwise mLSTM at phase 10's shapes,
@@ -165,7 +167,35 @@ each asserting, in order:
    passes plus the rest on the fp32 pipe (printed beside the fp32-pipe
    figure); each row also carries the host time of one call on its own
    (``host_ms``: CPU wall time, no synchronise); print one
-   ``{"kernels": [...]}`` line.
+   ``{"kernels": [...]}`` line;
+14. (run before 13's timings, so that its launches join the kernels line)
+   drive disaggregated serving over GMIs (``make_disagg_front``: decode
+   GMIs behind a ``RequestRouter``, prefill GMIs, the ``CacheChannel``,
+   every GMI on its own CUDA stream from a ``GMIManager``): (a) a small f32
+   front (reduced internlm2-1.8b, 2 decode GMIs x 4 slots, 1 prefill GMI,
+   the planner pinned so that 40-token prompts migrate and 12-token ones
+   stay local) on the card against the CPU: routes, payload bytes, head
+   pages, ``prefix_pages_saved`` and greedy tokens equal; then
+   ``make_fleet_supervisor(..., router=front)`` over a small A3C fleet
+   with an ``engine_fail``, a ``prefill_fail`` and a ``channel_drop``:
+   failure and recovery logs and tokens equal, every request completed;
+   (b) internlm2-1.8b at full width in bf16, 2 decode GMIs x 8 slots and 1
+   prefill GMI sharing one copy of the parameters, ``max_seq`` 1024,
+   8-token pages, four 896-token prompts (two share a 512-token head) and
+   four 64-token ones, 64 greedy tokens each, the planner pinned so that
+   the 896s migrate and the 64s stay local, with the launch counters set to
+   0 just before and read just after: one flash launch per layer per
+   whole-prompt dispatch on whichever GMI ran it, one paged-decode launch
+   per layer per decode step per engine, each payload's bytes its shipped
+   pages x the page bytes, the shared head's 64 pages skipped, no request
+   lost; it prints the pack ms and GB/s, TTFT by route, decode tok/s,
+   peak device memory and the ``oracle_generate`` match count of a
+   migrated and a local request (printed, as in phase 8), then runs the
+   trace again through a planner priced by this run's measurements and
+   prints its decisions; (c) ``make_async_runner(..., router=front,
+   online_controller=True)`` over an A3C fleet with the small front,
+   traffic outrunning its slots: at least one serving decision applied,
+   every request completed, trained == predicted.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -198,7 +228,7 @@ N_GAE_STRIDE = 300000
 # tokens), the whole-prompt prefill dispatch (B, S) it makes, and the
 # launcher's (``launch/serve.py --full --batch 8 --prompt-len 512``)
 DECODE_POS = [574, 574, 574, 574, 190, 190, 190, 958]
-FLASH_SHAPES = [(3, 128), (4, 512), (8, 512)]
+FLASH_SHAPES = [(3, 128), (4, 512), (8, 512), (1, 896)]
 # timed flash shapes (B, S, H, KH, hd): phase 8's dispatch and the
 # launcher's at internlm2-1.8b's heads, and phase 11's two 512-token
 # prompts at stablelm-12b's (hd 160, run at the padded width 192)
@@ -260,6 +290,22 @@ SLAYERS = 8              # of stablelm-12b's 40, to keep the phase short
 # dispatches (B, S)
 SDECODE_POS = [543, 543, 159, 159]
 SFLASH_SHAPES = [(2, 512), (2, 128)]
+# phase 14: GMIs a manager holds room for (decode, prefill and any a
+# controller decision adds); (b)'s decode GMIs, prefill GMIs and slots a
+# decode GMI; its traffic (long prompts, the head two of them share, short
+# prompts, greedy tokens each) and the pinned planner's threshold in
+# prompt tokens (the long prompts migrate, the short stay local); (a)'s
+# threshold, and its supervised fleet's faults (kind, round, target) and
+# rounds; (c)'s rounds
+D_GMIS = 16
+D_DECODE, D_PREFILL, D_SLOTS = 2, 1, 8
+D_LONG, D_HEAD, D_SHORT, D_GEN = 896, 512, 64, 64
+D_THRESHOLD = 300
+D_SMALL_THRESHOLD = 24
+D_FLEET_EVENTS = [("engine_fail", 1, 0), ("prefill_fail", 2, 0),
+                  ("channel_drop", 2, None)]
+D_FLEET_ROUNDS = 4
+D_ARBITER_ROUNDS = 4
 # mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
 # dispatch and of the 768-token prompt's second chunk
 MLSTM_MAIN = [(4, 4, 512, 512, 256, True), (1, 4, 256, 512, 256, False)]
@@ -1771,6 +1817,403 @@ def run_stablelm(dev):
     return launches, stats
 
 
+# --------------------------------------------- disaggregated serving ----
+def gmi_manager(dev, n=D_GMIS):
+    """A MIG-like GMIManager on ``dev``: each GMI ``make_disagg_front``
+    registers gets its own CUDA stream (none on the CPU)."""
+    from repro_torch.core.gmi import GMIManager
+    return GMIManager(devices=list(range(n)), devices_per_gpu=n,
+                      backend="submesh", device=dev)
+
+
+def pinned_planner(threshold):
+    """A ``MigrationPlanner`` pinned so that a prompt of ``threshold``
+    tokens or more migrates and a shorter one stays local: a bandwidth so
+    high that bytes cost nothing, a fixed local prefill rate and a fixed
+    per-transfer latency; measurements do not move it."""
+    from repro_torch.serve import MigrationPlanner
+
+    class Pinned(MigrationPlanner):
+        @property
+        def bandwidth(self):
+            return self.static_bandwidth
+
+        def observe_prefill(self, tokens, seconds):
+            pass
+
+    rate = 1e4
+    return Pinned(bandwidth=1e15, latency_s=threshold / (1.05 * rate),
+                  prefill_tok_s=rate)
+
+
+def disagg_stream(vocab, seed, n_long, long_len, head_len, n_short,
+                  short_len, gen_tokens):
+    """The disaggregated traffic as two waves: wave 1 the first long prompt
+    (which carries the shared head) and half the short ones; wave 2 the
+    other long prompts (the second shares the head) and the other short
+    ones.  A wave drains before the next starts, so the second sharing
+    prompt is staged while the decode engine that spliced the first is
+    the least loaded (the least-loaded engine takes each payload) and its
+    prefix index still holds the head."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, head_len)
+    longs = [Request(tokens=np.concatenate(
+        [head, rng.integers(0, vocab, long_len - head_len)])
+        if i < 2 else rng.integers(0, vocab, long_len),
+        max_new_tokens=gen_tokens) for i in range(n_long)]
+    shorts = [Request(tokens=rng.integers(0, vocab, short_len),
+                      max_new_tokens=gen_tokens) for _ in range(n_short)]
+    h = n_short // 2
+    return [[longs[0], *shorts[:h]], [*longs[1:], *shorts[h:]]]
+
+
+def record_sends(front, dev):
+    """Wrap the front's channel ``send`` to log each payload's request,
+    wire bytes and head pages, the host time of the call, and (on the
+    card) CUDA events around the pack on the sending stream."""
+    log = []
+    send = front.channel.send
+
+    def timed(item, tree, *, source=None):
+        evs = None
+        if dev.type == "cuda":
+            s = torch.cuda.current_stream(dev)
+            evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            evs[0].record(s)
+        t0 = time.perf_counter()
+        n = send(item, tree, source=source)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if evs:
+            evs[1].record(s)
+        log.append({"rid": item.req.rid, "prompt": item.prompt_tokens,
+                    "head_pages": item.head_pages, "bytes": n, "evs": evs,
+                    "host_ms": host_ms})
+        return n
+
+    front.channel.send = timed
+    return log
+
+
+def drive_front(front, waves):
+    """Submit each wave (the planner routes each request as it arrives),
+    step the front until idle, then the next wave.  Returns completions,
+    each request's route, and its time to first token on the host clock
+    (submit to the end of the front step in which it first holds a
+    token)."""
+    done, routes, t_sub, ttft = [], {}, {}, {}
+    for wave in waves:
+        for r in wave:
+            before = front.planner.migrated
+            t_sub[r.rid] = time.perf_counter()
+            front.submit(r)
+            routes[r.rid] = "migrated" if front.planner.migrated > before \
+                else "local"
+        while front.busy:
+            done += front.step()
+            now = time.perf_counter()
+            for e in front.engines:
+                for st in e._slots:
+                    if st is not None and st.generated:
+                        ttft.setdefault(st.req.rid, now - t_sub[st.req.rid])
+            for c in done:
+                ttft.setdefault(c.rid, now - t_sub[c.rid])
+    return done, routes, ttft
+
+
+def small_disagg(dev, params, cfg):
+    """Phase 14 (a)'s front on ``dev``: reduced internlm2-1.8b in f32, 2
+    decode GMIs x 4 slots and 1 prefill GMI, each on its own stream on the
+    card, the planner pinned at D_SMALL_THRESHOLD tokens."""
+    from repro_torch.launch.steps import make_disagg_front
+    front = make_disagg_front(cfg, params, decode_engines=2, prefill_gmis=1,
+                              max_slots=4, max_seq=96,
+                              manager=gmi_manager(dev))
+    front.planner = pinned_planner(D_SMALL_THRESHOLD)
+    return front
+
+
+def check_disagg_small(dev):
+    """(a) The same disaggregated trace on the card and on the CPU from the
+    same params: routes, payload bytes and head pages, prefix_pages_saved
+    and greedy tokens equal.  Then ``make_fleet_supervisor(...,
+    router=front)`` over a small A3C fleet (Ant, ``plan_async(3, 1, 2)``,
+    8 envs a GMI, T = 4) with D_FLEET_EVENTS: failure and recovery logs
+    equal on both sides, every request completed (tokens equal too)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.placement import plan_async
+    from repro_torch.envs import make_env
+    from repro_torch.fault import FaultEvent, FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_fleet_supervisor
+    from repro_torch.models import transformer as T
+    cfg = get_reduced(ARCH)
+    params = T.init_model(0, cfg, "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        d = torch.device(d)
+        front = small_disagg(d, params, cfg)
+        log = record_sends(front, d)
+        waves = disagg_stream(cfg.vocab_size, 2, 4, 40, 16, 4, 12, 10)
+        reqs = [r for w in waves for r in w]
+        ops.reset_launches()
+        done, routes, _ = drive_front(front, waves)
+        idx = {r.rid: i for i, r in enumerate(reqs)}
+        by_i = {idx[c.rid]: c for c in done}
+        assert len(by_i) == len(reqs) and all(
+            c.status == "ok" and len(c.tokens) == 10 for c in by_i.values())
+        res = {
+            "routes": [routes[r.rid] for r in reqs],
+            "payloads": [(idx[p["rid"]], p["bytes"], p["head_pages"])
+                         for p in log],
+            "prefix_pages_saved": front.prefix_pages_saved,
+            "tokens": [by_i[i].tokens for i in range(len(reqs))],
+            "launches": dict(ops.LAUNCHES)}
+        # the supervised fleet with the front as its router
+        front = small_disagg(d, params, cfg)
+        env = make_env("Ant", device=d)
+        layout = plan_async(3, 1, 2, devices=list(range(6)),
+                            devices_per_gpu=2, device=d)
+        plan = FaultPlan([FaultEvent(k, round=r, target=t)
+                          for k, r, t in D_FLEET_EVENTS])
+        sup = make_fleet_supervisor(env, layout, plan=plan, router=front,
+                                    num_envs=8, num_steps=4, device=d)
+        waves = disagg_stream(cfg.vocab_size, 3, 4, 40, 16, 4, 12, 10)
+        reqs = [r for w in waves for r in w]
+        for r in reqs:
+            front.submit(r)
+        for _ in range(D_FLEET_ROUNDS):
+            sup.round()
+        done = list(front.completions) + sup.drain_serving()
+        sup.runner.finish()
+        idx = {r.rid: i for i, r in enumerate(reqs)}
+        by_i = {idx[c.rid]: c for c in done}
+        assert len(by_i) == len(reqs) and all(
+            c.status == "ok" and len(c.tokens) == 10 for c in by_i.values())
+        r = sup.runner
+        assert r.trained_samples + r.poisoned_samples == r.predictions
+        res["fleet"] = {"failures": sup.failures,
+                        "recoveries": sup.recoveries,
+                        "tokens": [by_i[i].tokens for i in range(len(reqs))],
+                        "engines": front.num_engines,
+                        "prefill_engines": len(front.prefill_engines)}
+        out[str(d)] = res
+    cpu, card = out["cpu"], out[str(dev)]
+    for k in ("routes", "payloads", "prefix_pages_saved", "tokens",
+              "fleet"):
+        assert card[k] == cpu[k], (k, card[k], cpu[k])
+    assert "migrated" in cpu["routes"] and "local" in cpu["routes"]
+    assert cpu["prefix_pages_saved"] > 0
+    kinds = [f["kind"] for f in cpu["fleet"]["failures"]]
+    assert sorted(kinds) == sorted(k for k, _, _ in D_FLEET_EVENTS), kinds
+    la = card["launches"]
+    assert la["flash_attention"] > 0 and la["paged_attention"] > 0, la
+    return card, la
+
+
+def run_disagg(dev):
+    """(b) internlm2-1.8b at full width in bf16, random weights from seed
+    0: 2 decode GMIs x 8 slots and 1 prefill GMI, each on its own CUDA
+    stream, one copy of the parameters, ``max_seq`` 1024, 8-token pages;
+    the D_LONG/D_SHORT traffic with the planner pinned at D_THRESHOLD
+    tokens, the launch counters set to 0 just before and read just after.
+    Then the same trace through a planner that prices with this run's
+    measured pack bandwidth and prefill rate (its decisions printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_disagg_front
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import MigrationPlanner, Request
+    from repro_torch.serve.telemetry import ServingTelemetry
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    manager = gmi_manager(dev)
+    params = T.init_model(0, cfg, dev)
+    front = make_disagg_front(cfg, params, decode_engines=D_DECODE,
+                              prefill_gmis=D_PREFILL, max_slots=D_SLOTS,
+                              max_seq=1024, manager=manager)
+    del params
+    front.planner = pinned_planner(D_THRESHOLD)
+    engines = list(front.engines)
+    pf = front.prefill_engines[0]
+    # one copy of the parameters: every engine holds the same tensors
+    ptrs = {id(e): [t.data_ptr() for t in tree_leaves(e.params)]
+            for e in engines + [pf]}
+    assert len({tuple(v) for v in ptrs.values()}) == 1
+    if dev.type == "cuda":
+        streams = {e.stream for e in engines + [pf]}
+        assert None not in streams and len(streams) == D_DECODE + D_PREFILL
+    # warm-up: cuBLAS handles and bf16 GEMM heuristics on every stream,
+    # both routes
+    rng = torch.Generator().manual_seed(1)
+    warm = [Request(tokens=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).numpy(),
+                    max_new_tokens=3) for n in (40, 40, D_THRESHOLD + 8)]
+    drive_front(front, [warm])
+    for e in engines:
+        e.telemetry = ServingTelemetry(e.max_slots)
+        e.prefill_dispatches = 0
+    pf.prefill_dispatches = 0
+    pf.take_epoch()
+    front.take_epoch()
+    saved0 = front.prefix_pages_saved
+    setup_s = time.perf_counter() - t0
+    waves = disagg_stream(cfg.vocab_size, 0, 4, D_LONG, D_HEAD, 4, D_SHORT,
+                          D_GEN)
+    reqs = [r for w in waves for r in w]
+    log = record_sends(front, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done, routes, ttft = drive_front(front, waves)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    steps = sum(e.telemetry.total_decode_steps for e in engines)
+    dispatches = sum(e.prefill_dispatches for e in engines)
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = L * steps
+    want["flash_attention"] = L * (dispatches + pf.prefill_dispatches)
+    assert launches == want, (launches, want)
+    assert engines == list(front.engines), "a decode engine was lost"
+    want_routes = ["migrated" if len(r.tokens) >= D_THRESHOLD else "local"
+                   for r in reqs]
+    assert [routes[r.rid] for r in reqs] == want_routes
+    assert pf.prefill_dispatches == want_routes.count("migrated")
+    assert len(done) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == D_GEN for c in done)
+    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
+    # each payload ships its prompt's whole pages less the skipped head:
+    # k and v (bf16) and the slot positions (int32) of every layer
+    P = engines[0].page_size
+    page_bytes = L * P * (2 * cfg.num_kv_heads * cfg.resolved_head_dim
+                          * T.torch_dtype(cfg).itemsize + 4)
+    for p in log:
+        shipped = -(-p["prompt"] // P) - p["head_pages"]
+        assert p["bytes"] == shipped * page_bytes, (p, page_bytes)
+    heads = [p["head_pages"] for p in log]
+    assert heads == [0, D_HEAD // P, 0, 0], heads
+    assert front.prefix_pages_saved - saved0 == D_HEAD // P
+    pack_ms = [p["evs"][0].elapsed_time(p["evs"][1]) if p["evs"]
+               else p["host_ms"] for p in log]
+    pack_gbs = [p["bytes"] / (ms * 1e6) for p, ms in zip(log, pack_ms)]
+    tel = [e.telemetry for e in engines]
+    # each request's first token is counted at its admission
+    gen = sum(t.total_tokens for t in tel) - len(reqs)
+    decode_s = sum(t.total_decode_s for t in tel)
+    pf_s, pf_n, pf_toks = pf.take_epoch()
+    by_route = {k: sorted(ttft[r.rid] * 1e3 for r in reqs
+                          if routes[r.rid] == k)
+                for k in ("migrated", "local")}
+    stats = {
+        "setup_s": setup_s, "wall_s": wall,
+        "payload_mb": [p["bytes"] / 1e6 for p in log],
+        "head_pages": heads, "page_bytes": page_bytes,
+        "prefix_pages_saved": front.prefix_pages_saved - saved0,
+        "pack_ms": pack_ms, "pack_gb_s": pack_gbs,
+        "ttft_ms": by_route,
+        "prefill_gmi_tok_s": pf_toks / pf_s,
+        "decode_steps": steps, "decode_tok_s": gen / decode_s,
+        "end_to_end_tok_s": sum(len(c.tokens) for c in done) / wall,
+        "decode_prefill_dispatches": dispatches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    # oracle agreement (printed, as in phase 8): a migrated and a local
+    # request against the decode engine's B = 1 path
+    by_rid = {c.rid: c.tokens for c in done}
+    agree = []
+    for r in (reqs[0], reqs[1]):
+        orc = engines[0].oracle_generate(r)
+        got = by_rid[r.rid]
+        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
+                 len(orc))
+        agree.append({"prompt": len(r.tokens), "route": routes[r.rid],
+                      "matching": n, "of": len(orc)})
+    stats["oracle"] = agree
+    # the measured planner: this run's pack bandwidth and prefill rate
+    mp = MigrationPlanner()
+    for p, ms in zip(log, pack_ms):
+        mp.observe_transfer(ms / 1e3, p["bytes"])
+    mp.observe_prefill(pf_toks, pf_s)
+    front.planner = mp
+    again = [[Request(tokens=r.tokens, max_new_tokens=D_GEN)
+              for r in reqs]]
+    done2, routes2, _ = drive_front(front, again)
+    assert len(done2) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == D_GEN for c in done2)
+    measured = {"bandwidth_gb_s": mp.bandwidth / 1e9,
+                "prefill_tok_s": mp.prefill_tok_s,
+                "latency_s": mp.latency_s,
+                "routes": [(len(r.tokens), routes2[r.rid])
+                           for r in again[0]],
+                "migrated": mp.migrated, "kept_local": mp.kept_local}
+    return launches, stats, measured
+
+
+def run_disagg_arbiter(dev):
+    """(c) The single arbiter: ``make_async_runner(..., router=front,
+    online_controller=True)`` over an A3C fleet (Ant, ``plan_async(3, 1,
+    1)``, 64 envs a GMI, T = 8, fused kernels) with phase (a)'s small
+    front (1 decode GMI x 2 slots, 1 prefill GMI), D_ARBITER_ROUNDS rounds
+    with traffic outrunning the decode slots between them, the launch
+    counters set to 0 just before and read just after.  At least one
+    serving decision is applied (the front grows), and every request
+    completes."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.placement import plan_async
+    from repro_torch.envs import make_env
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_async_runner, make_disagg_front
+    from repro_torch.models import transformer as T
+    import numpy as np
+    from repro_torch.serve import Request
+    cfg = get_reduced(ARCH)
+    front = make_disagg_front(cfg, T.init_model(0, cfg, dev),
+                              decode_engines=1, prefill_gmis=1, max_slots=2,
+                              max_seq=96, manager=gmi_manager(dev))
+    front.planner = pinned_planner(D_SMALL_THRESHOLD)
+    layout = plan_async(3, 1, 1, devices=list(range(3)), devices_per_gpu=1,
+                        device=dev)
+    runner = make_async_runner(
+        make_env("Ant", device=dev), layout, online_controller=True,
+        router=front, num_envs=64, num_steps=8, use_fused_kernels=True,
+        device=dev, controller_cfg=ControllerConfig(epoch_rounds=1,
+                                                    probe=False))
+    rng = np.random.default_rng(4)
+    reqs, sizes = [], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    for _ in range(D_ARBITER_ROUNDS):
+        for n in (40, 12, 12, 12, 40, 12):
+            reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                                max_new_tokens=8))
+            front.submit(reqs[-1])
+        front.step()
+        front.step()
+        runner.round()
+        sizes.append((front.num_engines, len(front.prefill_engines)))
+    done = list(front.completions) + front.drain()
+    runner.finish()
+    launches = dict(ops.LAUNCHES)
+    ctl = runner.controller
+    serving = [d for d in ctl.decisions if "serving" in d.reason
+               or "prefill" in d.reason]
+    assert serving, ctl.summary()
+    assert max(n for n, _ in sizes) > 1 or max(p for _, p in sizes) > 1, \
+        sizes
+    assert {c.rid for c in done} == {r.rid for r in reqs}
+    assert all(c.status == "ok" and len(c.tokens) == 8 for c in done)
+    assert runner.trained_samples == runner.predictions
+    for k in ("flash_attention", "paged_attention", "nstep_returns",
+              "pack_channels"):
+        assert launches[k] > 0, launches
+    return launches, sizes, serving, runner
+
+
 def paged_bound(args):
     """Bytes and operations of one paged decode call on these inputs:
     q and out, the table and positions, and each row's mapped pages that
@@ -2210,6 +2653,57 @@ def main() -> int:
               f"num_env={x.num_env}")
     del runner
     print(f"[fleet] phase 12b took {time.perf_counter() - t12b:.1f} s")
+
+    # 14. disaggregated serving over GMIs (before 13's timings, so its
+    # launches join the kernels line) -------------------------------------
+    t14 = time.perf_counter()
+    small, la = check_disagg_small(dev)
+    by_path["disagg_small"] = la
+    print(f"[disagg] (a) small f32 front ({ARCH} reduced, 2 decode GMIs x 4 "
+          f"slots + 1 prefill GMI, one stream each, planner pinned at "
+          f"{D_SMALL_THRESHOLD} tokens) card vs CPU: routes "
+          f"{small['routes']}, payload (request, bytes, head pages) "
+          f"{small['payloads']}, prefix_pages_saved "
+          f"{small['prefix_pages_saved']}, greedy tokens, all equal; "
+          f"launches {la}")
+    fl = small["fleet"]
+    print(f"[disagg] (a) make_fleet_supervisor(router=front), Ant "
+          f"plan_async(3, 1, 2), plan {D_FLEET_EVENTS}, {D_FLEET_ROUNDS} "
+          f"rounds then drain_serving: failures "
+          f"{[(f['kind'], f['round'], f.get('target')) for f in fl['failures']]}"
+          f", recoveries {[(r['kind'], r['action']) for r in fl['recoveries'] if 'action' in r]}"
+          f", every request completed, tokens and logs equal to the CPU's; "
+          f"{fl['engines']} decode and {fl['prefill_engines']} prefill "
+          f"GMI(s) after")
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats, measured = run_disagg(dev)
+    by_path["disagg"] = la
+    print(f"[disagg] (b) {ARCH} full width bf16, {D_DECODE} decode GMIs x "
+          f"{D_SLOTS} slots + {D_PREFILL} prefill GMI, one CUDA stream each, "
+          f"shared params, max_seq 1024, 8-token pages; 4 x {D_LONG} tokens "
+          f"(two share a {D_HEAD}-token head) and 4 x {D_SHORT}, {D_GEN} "
+          f"greedy tokens each, planner pinned at {D_THRESHOLD} tokens: "
+          f"launches {la}, stats {json.dumps(stats)}")
+    print(f"[disagg] (b) migration: payload "
+          f"{[round(x, 3) for x in stats['payload_mb']]} MB, pack ms "
+          f"{[round(x, 4) for x in stats['pack_ms']]}, GB/s "
+          f"{[round(x, 1) for x in stats['pack_gb_s']]}; TTFT ms migrated "
+          f"{[round(x, 1) for x in stats['ttft_ms']['migrated']]}, local "
+          f"{[round(x, 1) for x in stats['ttft_ms']['local']]}; decode "
+          f"{stats['decode_tok_s']:,.1f} tok/s; peak "
+          f"{stats['peak_mem_gb']:.2f} GB | {card_line()}")
+    print(f"[disagg] (b) measured planner over the same trace: "
+          f"{json.dumps(measured)}")
+    la, sizes, decisions, runner = run_disagg_arbiter(dev)
+    by_path["disagg_arbiter"] = la
+    print(f"[disagg] (c) make_async_runner(router=front, "
+          f"online_controller=True), Ant plan_async(3, 1, 1), "
+          f"{D_ARBITER_ROUNDS} rounds: (decode, prefill) GMIs after each "
+          f"round {sizes}, serving decisions "
+          f"{[d.reason for d in decisions]}, every request completed, "
+          f"trained == predicted == {runner.predictions:,}; launches {la}")
+    del runner
+    print(f"[disagg] phase 14 took {time.perf_counter() - t14:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------

@@ -17,7 +17,12 @@ the reference's file format (``checkpoint/ckpt.py``), built by
 ``make_fleet_supervisor``, and the paged LLM serving engine
 (``serve/engine.py``, ``launch/serve.py``) over the dense model stack
 (``models/transformer.py``) and over xlstm's mLSTM and sLSTM blocks
-(``models/ssm.py``).  Their eight kernels (env megakernel, fused GAE,
+(``models/ssm.py``), with the multi-GMI request router
+(``serve/router.py``) and the disaggregated prefill/decode front with
+cache migration between GMIs (``serve/disagg.py``,
+``core/channels.py::CacheChannel``; ``make_disagg_front``,
+``launch/serve.py --disagg``), which the fleet supervisor and the online
+controller also drive.  Their eight kernels (env megakernel, fused GAE,
 fused policy trunk, n-step return scan, ring pack, paged decode
 attention, flash attention, chunkwise mLSTM) are hand-written CUDA for
 ``sm_90a`` in ``repro_torch/csrc/``, built at first CUDA use.

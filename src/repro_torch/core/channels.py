@@ -1,5 +1,5 @@
-"""Channel-based experience sharing — MCC (paper §4.2), device-resident;
-port of ``repro/core/channels.py`` (experience half).
+"""Channel-based experience sharing — MCC (paper §4.2), device-resident,
+and the prefill-to-decode cache channel; port of ``repro/core/channels.py``.
 
 Four services connect agent instances to trainer instances in async DRL:
 
@@ -52,6 +52,14 @@ single-group layout (no placement map; the Table-8 configuration) that is
 one transfer per channel per flush, comparable with the UCC baseline
 (:class:`UniChannelPipeline`).  :class:`HostStagedPipeline` keeps the
 host-list staging baseline.
+
+:class:`CacheChannel` is the prefill-to-decode cache migration link of
+the disaggregated serving front (``serve/disagg.py``).  A payload packs
+on the sending GMI's stream and is spliced on the receiving GMI's, so
+the channel records an event after each pack and ``deliver`` makes the
+consumer's stream wait on it and marks the payload's buffers as used
+there (``record_stream``), before the caching allocator could hand
+their memory out again.
 """
 from __future__ import annotations
 
@@ -63,7 +71,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.channel_pack import (CHANNELS, alloc_rings,
+                                              cache_payload_bytes,
+                                              pack_cache_payload,
                                               pack_generation,
+                                              unpack_cache_payload,
                                               version_tensor)
 from repro_torch.rl.a3c import Experience
 from repro_torch.utils import resolve_device, tree_leaves
@@ -575,6 +586,110 @@ class MultiChannelPipeline:
     @property
     def stats(self) -> TransferStats:
         return self.compressor.stats
+
+
+class CacheChannel:
+    """Point-to-point link for prefill->decode cache migration.
+
+    A prefill-specialist GMI finishes a prompt and ships the resulting
+    cache tree to a decode GMI's slot.  ``send`` packs the tree into
+    per-dtype contiguous buffers (``pack_cache_payload``: one coarse copy
+    a dtype, the §4.2 discipline of the experience rings) and stages the
+    transfer; ``deliver`` hands over everything staged, rebuilds each
+    payload bit-exactly (views of its buffers), and records one
+    :class:`TransferStats` entry plus a (seconds, bytes) timing sample per
+    delivering batch, calibrator-compatible, so measured migration
+    bandwidth feeds the same Table-2 fit as gradient reduces.
+
+    Streams: ``send`` runs on the caller's current stream (the prefill
+    GMI's) and records an event there after the pack.  ``deliver(stream=)``
+    names the consumer: a CUDA stream, a callable ``item -> stream`` (or
+    None), or None for the current stream.  Each delivered payload's
+    consumer waits on its event and its buffers are ``record_stream``-ed
+    on the consumer.  The CPU has no streams and skips both.
+
+    Fault seam: ``fault_hook(source, item)`` may answer ``"drop"``: the
+    transfer is lost in transit and retransmitted on the next deliver
+    (lossy link, lossless data).  A dead *source* is different:
+    :meth:`fail_source` evicts that engine's still-staged payloads (their
+    buffers died with it) and returns the items so the caller can
+    re-prefill them on a survivor.
+    """
+
+    def __init__(self, name: str = "cache"):
+        self.name = name
+        self.fault_hook = None
+        self.stats = TransferStats()
+        self.dropped = 0
+        # (source, item, bufs, meta, event after the pack)
+        self._staged: List[tuple] = []
+        self._transfer_samples: List[Tuple[float, int]] = []
+
+    def send(self, item, tree, *, source=None) -> int:
+        """Stage ``tree`` (a cache tree) for delivery; ``item`` is the
+        caller's opaque routing handle, ``source`` identifies the sending
+        engine for :meth:`fail_source`.  Returns the wire size."""
+        bufs, meta = pack_cache_payload(tree)
+        ev = None
+        if bufs and bufs[0].is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(bufs[0].device))
+        self._staged.append((source, item, bufs, meta, ev))
+        return cache_payload_bytes(bufs)
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._staged)
+
+    @staticmethod
+    def _hand_over(bufs, ev, stream) -> None:
+        if ev is None:
+            return
+        if stream is None:
+            stream = torch.cuda.current_stream(bufs[0].device)
+        stream.wait_event(ev)
+        for b in bufs:
+            b.record_stream(stream)
+
+    def deliver(self, stream=None) -> List[tuple]:
+        """Deliver everything staged as ``(item, tree)`` pairs, oldest
+        first, each made ready on its consumer ``stream`` (see the class
+        notes).  Dropped transfers stay staged for retransmission."""
+        t0 = time.perf_counter()
+        staged, self._staged = self._staged, []
+        out: List[tuple] = []
+        nbytes = 0
+        for entry in staged:
+            source, item, bufs, meta, ev = entry
+            if self.fault_hook is not None \
+                    and self.fault_hook(source, item) == "drop":
+                self.dropped += 1
+                self._staged.append(entry)
+                continue
+            self._hand_over(bufs, ev, stream(item) if callable(stream)
+                            else stream)
+            tree = unpack_cache_payload(bufs, meta)
+            self.stats.record(tree)
+            nbytes += cache_payload_bytes(bufs)
+            out.append((item, tree))
+        if nbytes > 0:
+            self._transfer_samples.append(
+                (time.perf_counter() - t0, int(nbytes)))
+            del self._transfer_samples[:-64]
+        return out
+
+    def fail_source(self, source) -> List:
+        """Evict payloads still staged from a dead source engine; returns
+        their ``item`` handles for re-prefill on a survivor."""
+        lost = [e[1] for e in self._staged if e[0] is source]
+        self._staged = [e for e in self._staged if e[0] is not source]
+        return lost
+
+    def take_transfer_samples(self) -> List[Tuple[float, int]]:
+        """Per-delivery (seconds, bytes) samples since the last call: the
+        migration-bandwidth evidence for the calibrator."""
+        samples, self._transfer_samples = self._transfer_samples, []
+        return samples
 
 
 class HostStagedPipeline:

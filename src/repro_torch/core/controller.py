@@ -65,9 +65,10 @@ gives one back; when the split cannot grow, the controller probes the
 next decode-slot count up the ladder instead (Algorithm 2's explore step
 under traffic); and ``selection.explore`` re-runs over the measured
 serving table under the same ``min_gain`` hysteresis.
-The reference's ``RequestRouter.maybe_replan`` applies the resulting
-``Decision`` by scaling its engine set; the port's router is ROADMAP
-item 17.
+``RequestRouter.apply_decision`` (and ``DisaggFront.apply_decision`` for
+the prefill split) applies the resulting ``Decision`` by scaling its
+engine set; ``maybe_replan`` is the standalone observe-then-apply
+wrapper.
 
 ``plan_layout`` materializes the current decision as a
 ``placement.plan_async`` layout so the runner can rebuild its pipeline

@@ -5,8 +5,9 @@ A :class:`FaultPlan` is a seeded, pre-computed schedule of
 :class:`FaultEvent`\\ s.  Hooks installed by the
 :class:`~repro_torch.fault.supervisor.FleetSupervisor` consult the plan at
 the existing seams (``AsyncRunner.fault_hook``,
-``MultiChannelPipeline.fault_hook``, ``checkpoint.save(fault_hook=)``;
-the serving engines' seam comes with the router, ROADMAP item 17) and
+``MultiChannelPipeline.fault_hook``, ``checkpoint.save(fault_hook=)``,
+the serving engines' and prefill GMIs' ``fault_hook``, and
+``CacheChannel.fault_hook``) and
 fire each event exactly once at its scheduled round — so a test or
 bench replaying the same plan against the same workload sees the exact
 same failure sequence AND the exact same recovery sequence.  Nothing in

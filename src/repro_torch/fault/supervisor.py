@@ -1,10 +1,11 @@
 """Fleet supervision: failure classification, quarantine, and lossless
-recovery over the async trainer; port of the runner half of
+recovery over the async trainer and the serving router; port of
 ``repro/fault/supervisor.py``.
 
 The :class:`FleetSupervisor` is the recovery half of the fault subsystem
 (:mod:`repro_torch.fault.inject` is the breakage half).  It wraps an
-``AsyncRunner``, installs the injection hooks at every seam, and turns
+``AsyncRunner`` (and optionally a ``RequestRouter`` or ``DisaggFront``),
+installs the injection hooks at every seam, and turns
 each raised :class:`~repro_torch.fault.inject.InjectedFault` into the
 paper-shaped recovery action for its class:
 
@@ -19,6 +20,15 @@ paper-shaped recovery action for its class:
   (spill-not-drop); the round's gradient is discarded, the GPU is
   quarantined, and the same reduced-pool re-plan re-delivers the spilled
   experience to the surviving trainers.
+* **serving engine dies mid-decode** — ``RequestRouter.fail_engine``:
+  queued requests re-route to survivors with their latency clocks
+  intact, in-flight requests restart from scratch under a capped retry
+  budget, deadlines keep running throughout.
+* **prefill GMI dies** — classified separately from decode-engine death:
+  ``DisaggFront.fail_prefill_engine`` re-routes its queued prompts to a
+  surviving prefill specialist, evicts the dead source's in-flight cache
+  payloads from the migration channel, and re-prefills those requests on
+  survivors with their submit clocks intact — zero requests lost.
 * **channel drop / poison** — the pipeline retransmits dropped flushes
   from ``_pending``; poisoned flushes reach the trainer, whose
   non-finite guard (enabled by the supervisor) discards the update
@@ -33,10 +43,6 @@ A quarantined GPU re-enters the pool after ``probation`` consecutive
 healthy rounds (re-admission is one more re-plan, growing the pool
 back).  Every failure and recovery is recorded in ``failures`` /
 ``recoveries`` for tests and benches to assert against.
-
-The serving-router half (``engine_fail`` and ``prefill_fail``:
-``_arm_engines``, ``step_serving``, ``drain_serving``) waits for
-``serve/router.py``, ROADMAP item 17.
 """
 from __future__ import annotations
 
@@ -48,9 +54,9 @@ from repro_torch.fault.inject import (TEAR_MODES, FaultPlan,
 
 
 class FleetSupervisor:
-    """Drives ``runner.round()`` under a
+    """Drives ``runner.round()`` / ``router.step()`` under a
     :class:`~repro_torch.fault.inject.FaultPlan`, recovering losslessly
-    from every runner-side fault class the plan can schedule.
+    from every fault class the plan can schedule.
 
     Parameters
     ----------
@@ -64,26 +70,28 @@ class FleetSupervisor:
         The fault schedule.  ``None`` supervises without injection (the
         hooks stay armed; real failures raised at the seams recover the
         same way).
-    router : not ported yet (ROADMAP item 17); passing one raises.
+    router : RequestRouter or DisaggFront, optional
+        The serving front; engine hooks are armed on its live engine set
+        (decode engines and prefill specialists) every guarded step.
     ckpt_dir / ckpt_every : periodic preemption-safe checkpointing —
         every ``ckpt_every`` rounds, params, Adam state and version plus
         counters and controller tables are checkpointed atomically.
     probation : healthy rounds before a quarantined GPU re-enters.
+    max_retries : per-request restart budget after engine deaths.
     """
 
     def __init__(self, runner, layout, *, plan: Optional[FaultPlan] = None,
                  router=None, ckpt_dir: Optional[str] = None,
-                 ckpt_every: int = 0, probation: int = 2):
-        if router is not None:
-            raise NotImplementedError(
-                "supervising a request-serving front (router=) is not "
-                "ported yet: serve/router.py is ROADMAP item 17")
+                 ckpt_every: int = 0, probation: int = 2,
+                 max_retries: int = 2):
         self.runner = runner
+        self.router = router
         self.plan = plan
         self.layout = layout
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = int(ckpt_every)
         self.probation = int(probation)
+        self.max_retries = int(max_retries)
 
         gmis = layout.manager.gmis.values()
         gpus = {g.gpu_id for g in gmis}
@@ -135,11 +143,30 @@ class FleetSupervisor:
         if hasattr(pipe, "fault_hook"):
             pipe.fault_hook = self._pipe_hook
 
+    def _arm_engines(self) -> None:
+        if self.router is None:
+            return
+        for i, eng in enumerate(self.router.engines):
+            eng.fault_hook = self._make_engine_hook(i)
+        for i, eng in enumerate(getattr(self.router,
+                                        "prefill_engines", ())):
+            eng.fault_hook = self._make_engine_hook(i, kind="prefill_fail")
+
+    def _make_engine_hook(self, index: int, kind: str = "engine_fail"):
+        def hook(engine):
+            if self.plan is None:
+                return
+            ev = self.plan.take(kind, target=index)
+            if ev is not None:
+                raise InjectedFault(ev, engine=engine)
+        return hook
+
     # ---------------------------------------------------------- the loop --
     def round(self, noise=None):
-        """One supervised serve->ship->train round; ``noise`` passes
-        through to ``runner.round``.  Returns the runner's (losses,
-        staleness) — empty on a failed-and-recovered round."""
+        """One supervised serve->ship->train round (plus one guarded
+        router step when a router is attached); ``noise`` passes through
+        to ``runner.round``.  Returns the runner's (losses, staleness) —
+        empty on a failed-and-recovered round."""
         if self.plan is not None:
             self.plan.advance(self.rounds_total)
         losses, stale = [], []
@@ -149,6 +176,8 @@ class FleetSupervisor:
         except InjectedFault as exc:
             self._recover_runner(exc)
         self._classify_telemetry()
+        if self.router is not None:
+            self.step_serving()
         self.rounds_total += 1
         if self.ckpt_dir and self.ckpt_every > 0 \
                 and self.rounds_total % self.ckpt_every == 0:
@@ -166,6 +195,47 @@ class FleetSupervisor:
         for _ in range(rounds):
             self.round()
         return self.runner.finish()
+
+    def step_serving(self):
+        """One guarded router step: engine hooks armed on the live set
+        (decode AND prefill specialists); a dying decode engine is failed
+        over via ``fail_engine``, a dying prefill GMI via
+        ``fail_prefill_engine`` (lossless — queued prompts and in-flight
+        cache payloads re-route to survivors)."""
+        self._arm_engines()
+        try:
+            return self.router.step()
+        except Exception as exc:
+            eng = getattr(exc, "engine", None)
+            if eng is None:
+                raise
+            if eng in getattr(self.router, "prefill_engines", ()):
+                self.failures.append({
+                    "kind": "prefill_fail", "round": self.rounds_total,
+                    "target": getattr(eng, "name", None)})
+                rerouted = self.router.fail_prefill_engine(eng)
+                self.recoveries.append({
+                    "kind": "prefill_fail", "round": self.rounds_total,
+                    "action": f"re-routed {rerouted} prompt(s)/payload(s) "
+                              f"to surviving prefill GMI(s)"})
+                return []
+            self.failures.append({
+                "kind": "engine_fail", "round": self.rounds_total,
+                "target": getattr(eng, "name", None)})
+            failed = self.router.fail_engine(eng, self.max_retries)
+            self.recoveries.append({
+                "kind": "engine_fail", "round": self.rounds_total,
+                "action": f"failed over to {self.router.num_engines} "
+                          f"survivor(s), {len(failed)} retry-exhausted"})
+            return failed
+
+    def drain_serving(self):
+        """Guarded ``router.drain()``: step until idle, failing over any
+        engine that dies on the way."""
+        done = []
+        while self.router is not None and self.router.busy:
+            done.extend(self.step_serving() or [])
+        return done
 
     # ----------------------------------------------------------- recovery --
     def _recover_runner(self, exc: InjectedFault) -> None:

@@ -21,6 +21,12 @@ with no host-to-device copy) or a one-element int32 tensor on the card.
 :func:`pack_generation` is the overlap ring's bulk pack of its staged
 pushes at a buffer swap; as in the reference it is plain tensor code
 outside any kernel (``torch.cat``), and the consumer owns its output.
+
+The cache-payload half (:func:`pack_cache_payload`,
+:func:`unpack_cache_payload`, :func:`cache_payload_bytes`,
+:func:`truncate_cache_pages`) is plain tensor code too, as the
+reference's ``jnp.concatenate`` and ``dynamic_slice`` under ``jit`` are:
+no Pallas kernel stands behind it.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 CHANNELS = ("obs", "actions", "rewards", "dones", "bootstrap",
             "actor_version")
@@ -149,3 +156,103 @@ def launch(bufs, payloads, slot):
         raise RuntimeError(f"pack_channels kernel launch failed: CUDA error "
                            f"{err}")
     return bufs
+
+
+# ----------------------------------------------------- cache-payload pack ---
+# Prefill/decode disaggregation ships a finished prefill cache (a tree of
+# KV stacks or recurrent states) between GMIs.  Shipping every leaf on its
+# own is the fine-grained-transfer pathology the ring pack above exists to
+# avoid, so a payload is flattened into ONE contiguous 1-D buffer per
+# dtype, dtype-sorted by name and each in the reference's leaf order
+# (``jax.tree.flatten``: dict keys sorted, named-tuple fields in order), so
+# buffer order and sizes equal the reference's; one ``torch.cat`` per dtype
+# packs it and slicing views of the buffers rebuild it bit-exactly.
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def _sorted(tree):
+    """``tree`` with every dict rebuilt in sorted key order, so that
+    flattening yields JAX's leaf order."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_sorted(x) for x in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_sorted(x) for x in tree)
+    return tree
+
+
+def pack_cache_payload(tree):
+    """Flatten a cache tree into per-dtype contiguous 1-D buffers.
+
+    Returns ``(bufs, meta)``: ``bufs`` is a tuple of tensors on the tree's
+    device (one per distinct dtype, sorted by dtype name) and ``meta``
+    rebuilds the tree through :func:`unpack_cache_payload`.  The round
+    trip is bit-exact: no cast, a flatten and one concatenation a dtype.
+    Runs on the current stream."""
+    leaves, treedef = tree_flatten(_sorted(tree))
+    spec = tuple((tuple(l.shape), _dtype_name(l.dtype)) for l in leaves)
+    bufs = tuple(
+        torch.cat([l.reshape(-1) for l, (_, d) in zip(leaves, spec)
+                   if d == dt])
+        for dt in sorted({d for _, d in spec}))
+    return bufs, (treedef, spec)
+
+
+def unpack_cache_payload(bufs, meta):
+    """Inverse of :func:`pack_cache_payload`: every leaf a view of its
+    dtype's buffer (no copy)."""
+    treedef, spec = meta
+    dtypes = sorted({d for _, d in spec})
+    offs = {dt: 0 for dt in dtypes}
+    leaves = []
+    for shape, dt in spec:
+        n = 1
+        for s in shape:
+            n *= s
+        buf = bufs[dtypes.index(dt)]
+        leaves.append(buf[offs[dt]:offs[dt] + n].view(shape))
+        offs[dt] += n
+    return tree_unflatten(leaves, treedef)
+
+
+def cache_payload_bytes(bufs) -> int:
+    """Wire size of a packed payload (sum over per-dtype buffers)."""
+    return int(sum(b.numel() * b.element_size() for b in bufs))
+
+
+# ----------------------------------------------- page-wise payload pruning ---
+def _is_kv(node) -> bool:
+    return hasattr(node, "slot_pos") and hasattr(node, "k")
+
+
+def truncate_cache_pages(tree, used_tokens: int, page_size: int,
+                         head_skip: int = 0):
+    """Prune a B=1 prefill-cache payload to whole pages before migration.
+
+    Full-depth attention nodes (duck-typed: a ``slot_pos`` and a ``k``,
+    whose sequence axis 2 covers every written position) are sliced along
+    it to ``[head_skip*page_size, ceil(used_tokens/page_size)*page_size)``:
+    the max_seq tail a monolithic payload would ship goes, and so do the
+    leading ``head_skip`` pages the destination already holds in its
+    shared-prefix index.  The decode engine's paged splice scatters
+    entries by their recorded ``slot_pos``, so pruning is position-safe.
+    Ring-buffer (sliding window) nodes shorter than ``used_tokens`` and
+    recurrent states ship whole.  The slices are views."""
+    P = max(int(page_size), 1)
+    hi = -(-max(int(used_tokens), 0) // P) * P
+    lo = min(max(int(head_skip), 0) * P, hi)
+
+    def prune(n):
+        if not _is_kv(n):
+            return n
+        S = n.k.shape[2]
+        if S < used_tokens:      # ring buffer: indices are not positions
+            return n
+        h = min(hi, S)
+        return type(n)(n.k[:, :, lo:h], n.v[:, :, lo:h],
+                       n.slot_pos[:, :, lo:h])
+
+    return tree_map(prune, tree, is_leaf=_is_kv)

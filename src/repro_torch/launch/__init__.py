@@ -3,6 +3,9 @@
 # steps.py (DRL step factories, the multi-GMI loop, and the async factories
 # make_async_runner and make_fleet_supervisor), async_a3c.py (async A3C
 # over the MCC ring, optionally over an async placement with the online
-# controller), serve.py (the paged serving engine), profile.py
+# controller), serve.py (the paged serving engine; --disagg: the
+# disaggregated prefill/decode front over GMIs), submesh_serving.py and
+# llm_policy_serving.py (runnable counterparts of the reference's serving
+# examples), profile.py
 # (device-time breakdown of one PPO iteration, of k GMIs' iteration, or of
 # serving steps).

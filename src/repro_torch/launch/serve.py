@@ -13,13 +13,23 @@ Examples:
       --full --device cuda --batch 8 --prompt-len 512 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
+      --device cuda --decode-engines 2 --prefill-gmis 1 --batch 8 \\
+      --prompt-len 512 --gen 64
 
 xlstm's whole-prompt prefill runs its mLSTM blocks in chunks of
 ``min(256, prompt)`` steps, which must divide the prompt length, as in the
 reference.
 
-Weights are random from ``--seed``.  The disaggregated front
-(``--disagg``) comes with ``serve/disagg.py`` in a later slice.
+``--disagg`` serves through the disaggregated front instead
+(``launch/steps.py::make_disagg_front``): prefill specialists feeding
+decode engines over the cache-migration channel, with the per-request
+migrate-vs-local decision priced by the Table-2 cost model
+(``serve/disagg.py``).  Every decode engine and prefill GMI is a GMI of a
+``GMIManager`` on the MIG-like backend, so on the card each runs under
+its own CUDA stream; all of them share one copy of the parameters.
+
+Weights are random from ``--seed``.
 """
 from __future__ import annotations
 
@@ -45,6 +55,13 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through the disaggregated prefill/decode "
+                         "front (cache migration between GMIs)")
+    ap.add_argument("--decode-engines", type=int, default=2,
+                    help="decode GMIs behind the router (--disagg)")
+    ap.add_argument("--prefill-gmis", type=int, default=1,
+                    help="prefill-specialist GMIs (--disagg)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -57,6 +74,9 @@ def main(argv=None):
     requests = [Request(tokens=batch["tokens"][i], max_new_tokens=args.gen,
                         temperature=args.temperature, seed=args.seed + i)
                 for i in range(args.batch)]
+
+    if args.disagg:
+        return _serve_disagg(args, cfg, params, device, requests)
 
     engine = ServeEngine(cfg, params, max_slots=args.batch,
                          max_seq=args.prompt_len + args.gen + 8,
@@ -76,6 +96,35 @@ def main(argv=None):
           f"tok/s)")
     print(f"decode:  {tel.total_decode_s*1e3:.1f} ms "
           f"({gen_tokens/max(tel.total_decode_s,1e-9):,.0f} tok/s)")
+    print("sample token ids:", first.tokens[:16])
+    return done
+
+
+def _serve_disagg(args, cfg, params, device, requests):
+    from repro_torch.core.gmi import GMIManager
+    from repro_torch.launch.steps import make_disagg_front
+    n = args.decode_engines + max(args.prefill_gmis, 1)
+    manager = GMIManager(devices=list(range(n)), devices_per_gpu=n,
+                         backend="submesh", device=device)
+    front = make_disagg_front(
+        cfg, params, decode_engines=args.decode_engines,
+        prefill_gmis=args.prefill_gmis, max_slots=args.batch,
+        max_seq=args.prompt_len + args.gen + 8, manager=manager)
+    done = front.serve(requests)
+    load = front.take_epoch()
+    pl = front.planner
+    print(f"arch={args.arch} {'full' if args.full else 'reduced'} "
+          f"device={device} batch={args.batch} disagg: "
+          f"{len(front.prefill_engines)} prefill + {front.num_engines} "
+          f"decode GMI(s)")
+    print(manager.summary())
+    print(f"migrated={pl.migrated} local={pl.kept_local} "
+          f"bw={pl.bandwidth/1e9:.2f} GB/s "
+          f"prefill_rate={pl.prefill_tok_s:,.0f} tok/s "
+          f"prefix_pages_saved={front.prefix_pages_saved}")
+    print(f"tokens={load.tokens} p50={load.p50_s*1e3:.1f} ms "
+          f"p95={load.p95_s*1e3:.1f} ms")
+    first = next(c for c in done if c.rid == requests[0].rid)
     print("sample token ids:", first.tokens[:16])
     return done
 

@@ -1,8 +1,9 @@
-"""DRL step factories, port of the DRL half of ``repro/launch/steps.py``
-(``make_communicator``, ``make_drl_train_step``, the async factories
-``make_experience_pipeline``, ``make_online_controller``,
-``make_async_runner`` and ``make_fleet_supervisor``), plus the multi-GMI
-loop that the training launchers share (:func:`train_gmis`).
+"""DRL and serving factories, port of the DRL and serving half of
+``repro/launch/steps.py`` (``make_communicator``, ``make_drl_train_step``,
+the async factories ``make_experience_pipeline``,
+``make_online_controller``, ``make_async_runner``, ``make_disagg_front``
+and ``make_fleet_supervisor``), plus the multi-GMI loop that the training
+launchers share (:func:`train_gmis`).
 
 The launcher, not the algorithm module, decides which hot path a step
 runs (the fused kernels by default) and how GMIs share the card: each GMI
@@ -232,7 +233,8 @@ def make_async_runner(env, layout, overlap: bool = False,
     measured-bandwidth calibration on the communicator (building one from
     the layout if none was asked for).  ``kwargs`` go to ``AsyncRunner``
     (``num_envs``, ``num_steps``, ``seed``, ``lr``,
-    ``use_fused_kernels``)."""
+    ``use_fused_kernels``, ``router``: a serving front that the one
+    controller then arbitrates with the trainers and rollout actors)."""
     from repro_torch.rl.a3c import AsyncRunner
     if megakernel:
         env = env.with_megakernel(True)
@@ -266,10 +268,70 @@ def make_async_runner(env, layout, overlap: bool = False,
                        **kwargs)
 
 
+def make_disagg_front(cfg, params, *, decode_engines: int = 2,
+                      prefill_gmis: int = 1, max_slots: int = 4,
+                      max_seq: int = 128,
+                      window_override: Optional[int] = None,
+                      communicator=None, latency_s: float = 100e-6,
+                      min_gain: float = 1.05, device="cuda",
+                      manager=None):
+    """Disaggregated serving front: ``decode_engines`` continuous-batching
+    decode GMIs behind a ``RequestRouter`` plus ``prefill_gmis`` prefill
+    specialists, joined by a ``CacheChannel``, with the per-request
+    migrate-vs-local decision priced by a ``MigrationPlanner`` in Table-2
+    units (a ``communicator`` supplies calibrated bandwidths; the
+    channel's own measured transfers sharpen them).  Both
+    sides get factories, so ONE controller decision can re-split
+    prefill/decode at runtime.  Pass the front as ``router=`` to
+    :func:`make_async_runner` / :func:`make_fleet_supervisor` to put it
+    under the single Algorithm-2 arbiter.
+
+    ``params`` are moved to ``device`` and cast to ``cfg.dtype`` once, and
+    every engine shares them.  With a ``manager``
+    (``core/gmi.py::GMIManager``), each engine the factories build is a
+    GMI of its own (role ``"serving"`` for decode, ``"prefill"`` for the
+    specialists, on GPU 0, one logical device of its pool each) and runs
+    under that GMI's stream (``manager.submesh``: a CUDA stream on the
+    card); without one every engine runs on the current stream."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (DisaggFront, MigrationPlanner,
+                                   PrefillEngine, RequestRouter,
+                                   ServeEngine)
+    from repro_torch.utils import resolve_device, tree_map
+    dev = resolve_device(manager.device if manager is not None else device)
+    params = T.cast_params(tree_map(lambda t: t.to(dev), params), cfg)
+
+    def gmi(role):
+        if manager is None:
+            return None
+        gid = max(manager.gmis, default=-1) + 1
+        manager.add_gmi(gid, role, 1.0 / manager.devices_per_gpu)
+        manager.set_gpu(gid, 0)
+        return manager.submesh(gid)
+
+    def engine_factory(i, slots=max_slots):
+        return ServeEngine(cfg, params, max_slots=slots, max_seq=max_seq,
+                           window_override=window_override, device=dev,
+                           gmi=gmi("serving"), name=f"decode{i}")
+
+    def prefill_factory(i):
+        return PrefillEngine(cfg, params, max_seq=max_seq,
+                             window_override=window_override, device=dev,
+                             gmi=gmi("prefill"), name=f"prefill{i}")
+
+    router = RequestRouter(engine_factory=engine_factory,
+                           num_engines=decode_engines)
+    planner = MigrationPlanner(communicator=communicator,
+                               latency_s=latency_s, min_gain=min_gain)
+    return DisaggFront(
+        router, [prefill_factory(i) for i in range(max(prefill_gmis, 1))],
+        planner=planner, prefill_factory=prefill_factory)
+
+
 def make_fleet_supervisor(env, layout, *, plan=None, router=None,
                           ckpt_dir: Optional[str] = None,
                           ckpt_every: int = 0, probation: int = 2,
-                          overlap: bool = False,
+                          max_retries: int = 2, overlap: bool = False,
                           online_controller: bool = False, **kwargs):
     """Fault-tolerant fleet over an async placement layout: a
     :func:`make_async_runner` runner wrapped in a
@@ -278,12 +340,16 @@ def make_fleet_supervisor(env, layout, *, plan=None, router=None,
     probation-gated re-admission, lossless re-plans onto the surviving
     pool, and (with ``ckpt_dir``/``ckpt_every``) periodic preemption-safe
     checkpoints.  ``plan`` is an optional
-    :class:`repro_torch.fault.FaultPlan`; ``kwargs`` go to
-    :func:`make_async_runner` (``device`` among them).  A serving front
-    (``router=``) is ROADMAP item 17: the runner refuses it."""
+    :class:`repro_torch.fault.FaultPlan`; ``router`` an optional serving
+    front (``RequestRouter`` or ``DisaggFront``) to supervise too — it is
+    ALSO handed to the runner, so the one controller instance arbitrating
+    trainers and rollout actors folds the serving epochs into the same
+    Algorithm-2 loop.  ``kwargs`` go to :func:`make_async_runner`
+    (``device`` among them)."""
     from repro_torch.fault import FleetSupervisor
     runner = make_async_runner(env, layout, overlap=overlap,
                                online_controller=online_controller,
                                router=router, **kwargs)
-    return FleetSupervisor(runner, layout, plan=plan, ckpt_dir=ckpt_dir,
-                           ckpt_every=ckpt_every, probation=probation)
+    return FleetSupervisor(runner, layout, plan=plan, router=router,
+                           ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                           probation=probation, max_retries=max_retries)

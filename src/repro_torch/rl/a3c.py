@@ -141,7 +141,12 @@ class AsyncRunner:
     :meth:`restore` write and read the atomic npz-plus-manifest pair of
     ``repro_torch.checkpoint``, in the reference's format.
 
-    The request-serving front (``router=``) is ROADMAP item 17.
+    A serving front (``router=``, a ``RequestRouter`` or ``DisaggFront``)
+    puts serving under the same controller: after each round the
+    controller folds the front's telemetry epoch (``take_epoch``) into its
+    serving half and the front applies the answer (``apply_decision``),
+    the single-arbiter loop that arbitrates trainers, rollout actors,
+    prefill GMIs and decode GMIs together.
     """
 
     def __init__(self, env, serving_gmis, trainer_gmis, *, gmi_gpu=None,
@@ -154,10 +159,12 @@ class AsyncRunner:
         from repro_torch.models.policy import init_policy
         from repro_torch.optim import adam_init
 
-        if router is not None:
-            raise NotImplementedError(
-                "the request-serving front (router=) is not ported yet: "
-                "serve/router.py is ROADMAP item 17")
+        if router is not None and not all(
+                hasattr(router, a) for a in ("take_epoch", "apply_decision")):
+            raise TypeError(
+                f"router= takes a serving front (RequestRouter or "
+                f"DisaggFront: take_epoch, apply_decision), got "
+                f"{type(router).__name__}")
         if communicator is not None and communicator.mesh is not None:
             raise TypeError(
                 "AsyncRunner's round-interleaved trainer runs in one "
@@ -177,6 +184,7 @@ class AsyncRunner:
         self.seed = seed
         self.overlap = overlap
         self.controller = controller
+        self.router = router
         self.layout_builder = layout_builder
         self.communicator = communicator
         self.use_fused_kernels = use_fused_kernels
@@ -310,6 +318,15 @@ class AsyncRunner:
                     # strategy-only re-plan: communication plumbing, no
                     # pipeline drain or actor rebuild
                     self.communicator.switch(decision.reduction_strategy)
+        if self.router is not None and self.controller is not None:
+            # the serving half of the single-arbiter loop: fold the
+            # front's telemetry epoch into the same controller and apply
+            # whatever it answers through the thin hook.  A decision
+            # captured before this round's rollout re-plan carries a
+            # stale seq and is refused by the hook's fence.
+            sdec = self.controller.observe_serving(self.router.take_epoch())
+            if sdec is not None:
+                self.router.apply_decision(sdec, controller=self.controller)
         self.rounds += 1
         return losses, stale
 

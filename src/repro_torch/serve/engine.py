@@ -48,13 +48,20 @@ What changes in the port:
   draws: they come from a Gumbel-max over a counter hash of (request
   seed, position, vocab index) (``_pick_tokens``), so a draw still depends
   only on the request's seed and position, never on batch composition.
-* ``mesh`` becomes an explicit ``device``.  The disaggregated admission
-  path (``submit_prefilled``, ``take_prefilled``) comes with
-  ``serve/disagg.py`` in a later slice, as do the MoE, Mamba2/zamba2 and
-  multimodal families (``transformer.check_supported``).
+* ``mesh`` becomes an explicit ``device`` and an optional ``gmi`` (a
+  ``core/gmi.py::GMIContext``): the engine's device work runs under the
+  GMI's own CUDA stream, and its one token readback a step synchronises
+  that stream only.  Without ``gmi`` it runs on the current stream.
+* A migrated cache (``submit_prefilled``, the decode half of
+  ``serve/disagg.py``) is spliced on the engine's stream after that
+  stream has waited for the payload's pack (``core/channels.py::
+  CacheChannel``), and its buffers are marked as used there.
+* The MoE, Mamba2/zamba2 and multimodal families are not ported yet
+  (``transformer.check_supported``).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import time
@@ -70,7 +77,7 @@ from repro_torch.envs.physics import hash_u32
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.serve.telemetry import ServingTelemetry
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 _REQUEST_IDS = itertools.count()
 
@@ -79,15 +86,17 @@ _REQUEST_IDS = itertools.count()
 class Request:
     """One generation request.  ``tokens`` is the prompt (1-D int array);
     ``max_new_tokens`` counts every generated token, including the one the
-    prefill emits.  ``deadline_s`` is a TTL from submit time: a request
-    still queued past it completes with status ``"timeout"``.  The
-    reference's multimodal ``extras`` come with the vision/audio
-    frontends."""
+    prefill emits.  ``extras`` carries additional prompt modalities (e.g.
+    ``{"patches": (num_patches, feat)}`` for vision frontends, which the
+    port does not run yet); each entry gets a leading batch dim at
+    admission.  ``deadline_s`` is a TTL from submit time: a request still
+    queued past it completes with status ``"timeout"``."""
     tokens: Any
     max_new_tokens: int = 16
     temperature: float = 0.0
     seed: int = 0
     eos_id: Optional[int] = None
+    extras: Optional[Dict[str, Any]] = None
     deadline_s: Optional[float] = None
     rid: int = field(default_factory=lambda: next(_REQUEST_IDS))
 
@@ -100,8 +109,10 @@ class Request:
 @dataclass
 class Completion:
     """A retired request: ``tokens`` are the generated ids (prefill token
-    first), ``latency_s`` is submit-to-retire wall time, ``status`` is
-    ``"ok"`` or ``"timeout"``."""
+    first), ``latency_s`` is submit-to-retire wall time.  ``status`` is
+    ``"ok"`` for a normal retire, ``"timeout"`` for a deadline-expired
+    queued request (empty ``tokens``), ``"failed"`` for a request whose
+    engine died mid-decode with retries exhausted."""
     request: Request
     tokens: List[int]
     prompt_tokens: int
@@ -223,13 +234,17 @@ class ServeEngine:
     """Continuous-batching engine over one model replica.
 
     Parameters are the reference's, with ``device`` (default ``"cuda"``)
-    in place of ``mesh``: ``cfg, params`` (params in the reference's tree
-    layout, any device; the engine moves them to ``device`` and casts the
-    matmul weights and embedding table to ``cfg.dtype`` once),
+    and ``gmi`` in place of ``mesh``: ``cfg, params`` (params in the
+    reference's tree layout, any device; the engine moves them to
+    ``device`` and casts the matmul weights and embedding table to
+    ``cfg.dtype`` once, so engines given params already there and in that
+    type share them),
     ``max_slots``, ``max_seq``, ``window_override``, ``paged``,
     ``page_size``, ``num_pages`` (default ``max_slots *
     ceil(max_seq/page_size) + 1``), ``batch_prefill``, ``chunk_prefill``,
     ``share_prefix`` (off for patterned stacks, as in the reference).
+    ``gmi`` is an optional ``GMIContext``: its device overrides
+    ``device``, and the engine's work runs under its stream.
     ``prefill_dispatches`` counts whole-prompt prefill dispatches (each
     runs the flash kernel once an attention layer, or the mLSTM kernel
     once an mLSTM block).
@@ -242,13 +257,19 @@ class ServeEngine:
                  name: str = "engine", paged: bool = True,
                  page_size: int = 8, num_pages: Optional[int] = None,
                  batch_prefill: bool = True, chunk_prefill: int = 0,
-                 share_prefix: bool = True):
+                 share_prefix: bool = True, gmi=None):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name}: encoder-only model has no decode "
                              "step — nothing to serve")
         T.check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.gmi = gmi
+        self.device = resolve_device(gmi.device if gmi is not None
+                                     else device)
+        if self.stream is not None:
+            # the params (and whatever else the caller made) come from the
+            # stream that is current now
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
         self.window_override = window_override
@@ -263,21 +284,29 @@ class ServeEngine:
         self.fault_hook = None
         self.dead = False
         self.timeouts = 0
+        self.prefix_fallbacks = 0    # migrated payloads re-queued because a
+                                     # promised shared head was evicted
         self.prefill_dispatches = 0
-        self.params = T.cast_params(
-            tree_map(lambda t: t.to(self.device), params), cfg)
+        with self.scope():
+            self.params = T.cast_params(
+                tree_map(lambda t: t.to(self.device), params), cfg)
 
         self._queue: Deque[Request] = deque()
+        # prefilled-elsewhere payloads awaiting a slot (cache splice only,
+        # no local prefill compute), admitted ahead of the raw queue
+        # because their prefill cost is already sunk on another GMI
+        self._prefilled: Deque[Any] = deque()
         self._slots: List[Optional[_Slot]] = [None] * self.max_slots
         dt = T.torch_dtype(cfg)
         self.pages_per_slot = -(-self.max_seq // self.page_size)
         if self.paged:
             self.num_pages = int(num_pages) if num_pages is not None \
                 else self.max_slots * self.pages_per_slot + 1
-            self._caches = T.init_paged_cache(
-                cfg, self.max_slots, self.max_seq, window_override, dt,
-                page_size=self.page_size, num_pages=self.num_pages,
-                device=self.device)
+            with self.scope():
+                self._caches = T.init_paged_cache(
+                    cfg, self.max_slots, self.max_seq, window_override, dt,
+                    page_size=self.page_size, num_pages=self.num_pages,
+                    device=self.device)
             self._pool = _PagePool(self.num_pages)
             self._table = np.full((self.max_slots, self.pages_per_slot), -1,
                                   np.int32)
@@ -288,9 +317,10 @@ class ServeEngine:
             self._index = _PrefixIndex(self.page_size)
         else:
             self.num_pages = 0
-            self._caches = T.init_cache(cfg, self.max_slots, self.max_seq,
-                                        window_override, dt,
-                                        device=self.device)
+            with self.scope():
+                self._caches = T.init_cache(cfg, self.max_slots,
+                                            self.max_seq, window_override,
+                                            dt, device=self.device)
             self._pool = None
             self._share = False
         self._cache_bytes = sum(t.numel() * t.element_size()
@@ -306,8 +336,21 @@ class ServeEngine:
         self._temp = np.zeros((self.max_slots,), np.float32)
 
     # ---------------------------------------------------- device bodies --
-    def _prefill(self, tokens: np.ndarray):
+    @property
+    def stream(self):
+        """The GMI's CUDA stream, or None (current stream, or the CPU)."""
+        return self.gmi.stream if self.gmi is not None else None
+
+    def scope(self):
+        """A context manager that makes the GMI's stream current."""
+        s = self.stream
+        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+
+    def _prefill(self, tokens: np.ndarray, extras=None):
         batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v)[None],
+                                       device=self.device)
         return T.prefill(self.params, self.cfg, batch, self.max_seq,
                          self.window_override)
 
@@ -397,7 +440,7 @@ class ServeEngine:
 
     @property
     def queue_len(self) -> int:
-        return len(self._queue)
+        return len(self._queue) + len(self._prefilled)
 
     @property
     def load(self) -> int:
@@ -430,13 +473,14 @@ class ServeEngine:
     def submit(self, req: Request) -> int:
         """Queue a request; returns its id.  Admission happens at the next
         :meth:`step` when a slot (and, paged, enough pages) frees up."""
-        total = len(req.tokens) + req.max_new_tokens
+        total = len(req.tokens) + self._extra_tokens(req) + req.max_new_tokens
         if total > self.max_seq:
             raise ValueError(
                 f"request {req.rid}: prompt+budget {total} exceeds engine "
                 f"max_seq {self.max_seq}")
         if self.paged:
-            need = self._pages_needed(len(req.tokens), req.max_new_tokens)
+            need = self._pages_needed(
+                len(req.tokens) + self._extra_tokens(req), req.max_new_tokens)
             if need > self.total_pages:
                 raise ValueError(
                     f"request {req.rid}: needs {need} pages, engine pool has "
@@ -444,6 +488,41 @@ class ServeEngine:
         self.telemetry.on_submit(req.rid)
         self._queue.append(req)
         return req.rid
+
+    def submit_prefilled(self, payload) -> int:
+        """Queue a prefilled-elsewhere cache payload (duck-typed: ``req``,
+        ``cache``, ``first_id``, ``prompt_tokens``, ``submit_t``, optional
+        ``head_pages``) for splice-only admission: the decode half of
+        prefill/decode disaggregation.  The cache must come from the same
+        model (cfg/params/max_seq/window) for the splice to be
+        well-formed.  ``head_pages`` > 0 promises that the first
+        ``head_pages`` full prompt blocks are in this engine's
+        shared-prefix index (the sender stripped them from the payload);
+        if the promise no longer holds at admission the request re-queues
+        for a full local prefill instead: lossless, just slower."""
+        req = payload.req
+        total = payload.prompt_tokens + req.max_new_tokens
+        if total > self.max_seq:
+            raise ValueError(
+                f"request {req.rid}: prompt+budget {total} exceeds engine "
+                f"max_seq {self.max_seq}")
+        self.telemetry.on_submit(req.rid,
+                                 t=getattr(payload, "submit_t", None))
+        self._prefilled.append(payload)
+        return req.rid
+
+    def take_prefilled(self) -> List[Any]:
+        """Remove and return the not-yet-spliced prefilled payloads (they
+        are engine-independent: a survivor can splice them as-is)."""
+        out = list(self._prefilled)
+        self._prefilled.clear()
+        return out
+
+    def _extra_tokens(self, req: Request) -> int:
+        if self.cfg.frontend == "vision" and req.extras \
+                and "patches" in req.extras:
+            return int(req.extras["patches"].shape[0])
+        return 0
 
     # --------------------------------------------------------- page plumbing --
     def shared_head_pages(self, tokens) -> int:
@@ -497,13 +576,13 @@ class ServeEngine:
         hashes for post-prefill promotion — or None if the pool cannot
         cover it right now."""
         P = self.page_size
-        Lp = len(req.tokens)
+        Lp = len(req.tokens) + self._extra_tokens(req)
         need = self._pages_needed(Lp, req.max_new_tokens)
         shared_pids: List[int] = []
         cand = None
         lcp = 0
         hashes = None
-        if self._share:
+        if self._share and not req.extras:
             hashes = self._index.hashes(req.tokens)
             for h_prev, h_self, blk in hashes:
                 pid = self._index.full.get(h_self)
@@ -622,15 +701,77 @@ class ServeEngine:
         self._seed[slot] = st.req.seed
         self._temp[slot] = st.req.temperature
 
+    def _take_payload(self, pl) -> None:
+        """Make a migrated payload's cache safe to read on this engine's
+        stream: wait for the stream the channel handed it to (a payload
+        re-homed from a dead engine was handed to that engine's), and mark
+        its buffers as used here, so the caching allocator keeps them
+        until the splice has read them."""
+        if self.device.type != "cuda":
+            return
+        cur = torch.cuda.current_stream(self.device)
+        src = getattr(pl, "_ready_on", None)
+        if src is not None and src != cur:
+            cur.wait_stream(src)
+        for leaf in tree_leaves(pl.cache):
+            leaf.record_stream(cur)
+
+    def _admit_prefilled_paged(self, done: List[Completion]) -> None:
+        while self._prefilled and self.free_slots > 0:
+            pl = self._prefilled[0]
+            req = pl.req
+            head = int(getattr(pl, "head_pages", 0) or 0)
+            if head > 0 and self.shared_head_pages(req.tokens) < head:
+                # the promised shared head was evicted between the
+                # sender's query and arrival: the payload alone cannot
+                # rebuild the cache, so fall back to a full local prefill
+                self._prefilled.popleft()
+                self.prefix_fallbacks += 1
+                self._queue.append(req)
+                continue
+            need = self._pages_needed(pl.prompt_tokens, req.max_new_tokens)
+            shared = []
+            if head > 0:
+                hs = self._index.hashes(req.tokens)
+                shared = [self._index.full[h] for _, h, _ in hs[:head]]
+                for pid in shared:
+                    self._pool.retain(pid)
+            priv = self._alloc_pages(need - head)
+            if priv is None:
+                for pid in shared:
+                    self._pool.release(pid)
+                break                      # wait for a retirement
+            self._prefilled.popleft()
+            t0 = time.perf_counter()
+            slot = self._slots.index(None)
+            row = shared + priv
+            self._set_table_row(slot, row)
+            self._clear(priv)
+            self._take_payload(pl)
+            self._insert_paged(self._caches, pl.cache, 0, slot,
+                               self._table_row_dev(slot))
+            st = _Slot(req=req, pos=pl.prompt_tokens,
+                       remaining=req.max_new_tokens - 1, generated=[],
+                       submit_t=self.telemetry.submit_time(req.rid, t0),
+                       pages=row, prompt_total=pl.prompt_tokens,
+                       hashes=self._index.hashes(req.tokens)
+                       if self._share and not req.extras else None,
+                       prefill_s=time.perf_counter() - t0, t_admit=t0)
+            self._slots[slot] = st
+            self._activate(slot, st, pl.first_id, done)
+
     def _prefill_batch(self, items, done: List[Completion]) -> None:
         """One dense prefill dispatch for G same-length prompts, spliced
         row by row into the cache."""
         t0 = time.perf_counter()
         G = len(items)
+        # extras requests are admitted one at a time (G == 1)
         logits, cache = self._prefill(np.stack([it[0].tokens
-                                                for it in items]))
+                                                for it in items]),
+                                      items[0][0].extras)
         self.prefill_dispatches += 1
-        pts = [len(it[0].tokens) for it in items]
+        pts = [len(it[0].tokens) + self._extra_tokens(it[0])
+               for it in items]
         first = _pick_tokens(
             logits, np.asarray([p - 1 for p in pts], np.int32),
             np.asarray([it[0].seed for it in items], np.int32),
@@ -682,6 +823,7 @@ class ServeEngine:
 
     def _admit_paged(self) -> List[Completion]:
         done: List[Completion] = []
+        self._admit_prefilled_paged(done)
         batches: Dict[int, List[tuple]] = {}
         while self._queue and self.free_slots > 0:
             req = self._queue[0]
@@ -699,14 +841,15 @@ class ServeEngine:
             slot = self._slots.index(None)
             self._set_table_row(slot, row)
             L = len(req.tokens)
-            st = _Slot(req=req, pos=L, remaining=req.max_new_tokens - 1,
+            Lp = L + self._extra_tokens(req)
+            st = _Slot(req=req, pos=Lp, remaining=req.max_new_tokens - 1,
                        generated=[], submit_t=t_sub, pages=row,
-                       prefilling=True, chunk_next=p0, prompt_total=L,
+                       prefilling=True, chunk_next=p0, prompt_total=Lp,
                        hashes=hashes, t_admit=t0)
             self._slots[slot] = st
             whole = p0 == 0 and (self.chunk_prefill <= 0
                                  or L <= self.chunk_prefill)
-            if whole and not self.batch_prefill:
+            if req.extras or (whole and not self.batch_prefill):
                 self._prefill_batch([(req, slot, row, hashes)], done)
             elif whole:
                 batches.setdefault(L, []).append((req, slot, row, hashes))
@@ -722,6 +865,23 @@ class ServeEngine:
 
     def _admit_dense(self) -> List[Completion]:
         done: List[Completion] = []
+        # migrated payloads first: their prefill is already sunk on a
+        # prefill GMI, so admission is the splice alone, the same one the
+        # local path uses
+        while self._prefilled and self.free_slots > 0:
+            pl = self._prefilled.popleft()
+            req = pl.req
+            t0 = time.perf_counter()
+            slot = self._slots.index(None)
+            self._take_payload(pl)
+            self._insert_dense(self._caches, pl.cache, 0, slot)
+            st = _Slot(req=req, pos=pl.prompt_tokens,
+                       remaining=req.max_new_tokens - 1, generated=[],
+                       submit_t=self.telemetry.submit_time(req.rid, t0),
+                       prompt_total=pl.prompt_tokens,
+                       prefill_s=time.perf_counter() - t0, t_admit=t0)
+            self._slots[slot] = st
+            self._activate(slot, st, pl.first_id, done)
         while self._queue and self.free_slots > 0:
             req = self._queue.popleft()
             t0 = time.perf_counter()
@@ -730,10 +890,10 @@ class ServeEngine:
                 done.append(self._timeout(req, t0, t_sub))
                 continue
             slot = self._slots.index(None)
-            st = _Slot(req=req, pos=len(req.tokens),
+            Lp = len(req.tokens) + self._extra_tokens(req)
+            st = _Slot(req=req, pos=Lp,
                        remaining=req.max_new_tokens - 1, generated=[],
-                       submit_t=t_sub, prompt_total=len(req.tokens),
-                       t_admit=t0)
+                       submit_t=t_sub, prompt_total=Lp, t_admit=t0)
             self._slots[slot] = st
             self._prefill_batch([(req, slot, [], None)], done)
         return done
@@ -741,7 +901,11 @@ class ServeEngine:
     def step(self) -> List[Completion]:
         """Admit from the queue, advance chunked prefills, run ONE batched
         decode step, retire finished requests.  Returns this step's
-        completions."""
+        completions.  Runs under the GMI's stream."""
+        with self.scope():
+            return self._step()
+
+    def _step(self) -> List[Completion]:
         if self.fault_hook is not None:
             try:
                 self.fault_hook(self)
@@ -830,8 +994,12 @@ class ServeEngine:
         decode over a fresh private page pool (paged) or cache (dense).
         Continuous-batched greedy decoding must be token-identical to this
         (in f32; bf16 GEMMs at B=1 and B=8 may round differently)."""
-        logits, caches = self._prefill(req.tokens[None])
-        prompt_tokens = len(req.tokens)
+        with self.scope():
+            return self._oracle(req)
+
+    def _oracle(self, req: Request) -> List[int]:
+        logits, caches = self._prefill(req.tokens[None], req.extras)
+        prompt_tokens = len(req.tokens) + self._extra_tokens(req)
         table = None
         if self.paged:
             M = self.pages_per_slot

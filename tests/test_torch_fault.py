@@ -226,15 +226,22 @@ def test_nonfinite_guard_rolls_back_to_the_same_objects():
 
 
 def test_runner_refuses_router_and_mesh_communicator():
+    """A ``router=`` that is not a serving front (no ``take_epoch`` /
+    ``apply_decision``) and a mesh-attached Communicator are refused; a
+    serving front is accepted, by the runner and the fleet factory."""
     env = interop.env_like("Ant", jax_make_env("Ant").mega)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="serving front"):
         ta3c.AsyncRunner(env, [0], [1], num_envs=N, num_steps=T,
                          router=object(), device="cpu")
     layout = tplan_async(3, 2, 2, devices=list(range(6)),
                          devices_per_gpu=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="serving front"):
         tmake_fleet(env, layout, router=object(), num_envs=N, num_steps=T,
                     device="cpu")
+    router = _routers(fronts=False)["torch"]
+    sup = tmake_fleet(env, layout, router=router, num_envs=N, num_steps=T,
+                      device="cpu")
+    assert sup.router is router and sup.runner.router is router
     from repro_torch.comm import Communicator
     meshy = Communicator("mrr", grid=(2, 2))
     meshy.mesh = object()
@@ -455,3 +462,164 @@ def test_fleet_factories_run_without_jax():
     assert "NO_JAX_OK" in out.stdout
     assert "OnlineGMIController(" in out.stdout
     assert "re-plan: probe num_env=16" in out.stdout
+
+
+# ------------------------------------------------------- the serving half --
+def _serve_cfg():
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.models import transformer as JT
+    from repro_torch.configs.base import ModelConfig
+    kw = dict(name="f", num_layers=2, d_model=32, num_heads=2,
+              num_kv_heads=2, d_ff=64, vocab_size=64)
+    jp = JT.init_model(jax.random.key(0), JModelConfig(**kw))
+    return ((JModelConfig(**kw), jp),
+            (ModelConfig(**kw), interop.model_params(_np(jp))))
+
+
+def _routers(fronts=True, prefill=2):
+    """The reference's serving front and the port's from the same weights:
+    2 decode engines behind a router (``fronts=False``) or, behind a
+    ``DisaggFront``, 2 decode engines and ``prefill`` specialists with
+    migration forced."""
+    from repro import serve as jserve
+    from repro_torch import serve as tserve
+    out = {}
+    for k, mod, (cfg, params), extra in (
+            ("jax", jserve, _serve_cfg()[0], {}),
+            ("torch", tserve, _serve_cfg()[1], {"device": "cpu"})):
+        def efac(i, slots=2, mod=mod, cfg=cfg, params=params, extra=extra):
+            return mod.ServeEngine(cfg, params, max_slots=slots, max_seq=32,
+                                   name=f"d{i}", **extra)
+
+        def pfac(i, mod=mod, cfg=cfg, params=params, extra=extra):
+            return mod.PrefillEngine(cfg, params, max_seq=32, name=f"p{i}",
+                                     **extra)
+
+        router = mod.RequestRouter(engine_factory=efac, num_engines=2)
+        out[k] = router if not fronts else mod.DisaggFront(
+            router, [pfac(i) for i in range(prefill)],
+            planner=mod.MigrationPlanner(bandwidth=1e15, latency_s=0.0,
+                                         prefill_tok_s=1e-6),
+            prefill_factory=pfac)
+    return out
+
+
+def _serve_requests(seed, n, gen=5):
+    from repro.serve import Request as JRequest
+    from repro_torch.serve import Request as TRequest
+    rng = np.random.default_rng(seed)
+    pairs = [(rng.integers(0, 64, 6), gen) for _ in range(n)]
+    return {k: [R(tokens=t, max_new_tokens=b) for t, b in pairs]
+            for k, R in (("jax", JRequest), ("torch", TRequest))}
+
+
+SERVING_CASES = {
+    "engine_fail": dict(events=[dict(kind="engine_fail", round=1,
+                                     target=1)], fronts=False),
+    "prefill_fail": dict(events=[dict(kind="prefill_fail", round=1,
+                                      target=0)], fronts=True),
+    "prefill_and_channel_drop": dict(
+        events=[dict(kind="prefill_fail", round=1, target=0),
+                dict(kind="channel_drop", round=1)], fronts=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVING_CASES))
+def test_supervised_serving_matches_reference(case):
+    """The supervisor's serving half under both packages, after
+    ``tests/test_fault_recovery.py``'s engine and prefill cases: a decode
+    engine dies mid-decode behind a router, or a prefill specialist dies
+    with a payload staged on the migration channel behind a
+    ``DisaggFront`` (also with a channel drop in the same round, which the
+    channel's own seam retransmits).  ``drain_serving`` completes every
+    request with the reference's tokens; failure and recovery logs, engine
+    counts and channel counters are equal."""
+    kw = SERVING_CASES[case]
+    fronts = _routers(fronts=kw["fronts"])
+    reqs = _serve_requests(5, 8)
+    sups, done = {}, {}
+    for k, mod, make, plan_async, extra in (
+            ("jax", jfault, jmake_fleet, jplan_async, {}),
+            ("torch", tfault, tmake_fleet, tplan_async, {"device": "cpu"})):
+        env = jax_make_env("Ant") if k == "jax" else \
+            interop.env_like("Ant", jax_make_env("Ant").mega)
+        layout = plan_async(3, 2, 2, devices=list(range(6)),
+                            devices_per_gpu=2, **extra)
+        f = fronts[k]
+        sup = make(env, layout, plan=_events(mod, kw["events"]), router=f,
+                   num_envs=N, num_steps=T, **extra)
+        if kw["fronts"]:
+            # a drop, when scheduled, hits the channel's seam
+            f.channel.fault_hook = lambda src, item, sup=sup: (
+                "drop" if sup.plan.take("channel_drop") is not None
+                else None)
+        for q in reqs[k]:
+            f.submit(q)
+        if kw["fronts"]:
+            doomed = f.prefill_engines[0]
+            payload = doomed.step()
+            f.channel.send(payload, payload.cache, source=doomed)
+        sup.plan.advance(1)
+        idx = {r.rid: i for i, r in enumerate(reqs[k])}
+        done[k] = {idx[c.rid]: (c.tokens, c.status)
+                   for c in sup.drain_serving()}
+        sups[k] = sup
+    assert done["torch"] == done["jax"] and len(done["torch"]) == 8
+    assert all(s == "ok" for _, s in done["torch"].values())
+    js, ts = sups["jax"], sups["torch"]
+    assert ts.failures == js.failures and ts.recoveries == js.recoveries
+    tf, jf = fronts["torch"], fronts["jax"]
+    if kw["fronts"]:
+        assert [f["kind"] for f in ts.failures] == ["prefill_fail"]
+        assert tf.failed_prefill_engines == jf.failed_prefill_engines == 1
+        assert len(tf.prefill_engines) == len(jf.prefill_engines) == 1
+        assert tf.channel.in_flight == jf.channel.in_flight == 0
+        assert tf.channel.dropped == jf.channel.dropped \
+            == (1 if "drop" in case else 0)
+        assert tf.router.num_engines == jf.router.num_engines == 2
+    else:
+        assert [f["kind"] for f in ts.failures] == ["engine_fail"]
+        assert tf.num_engines == jf.num_engines == 1
+        assert tf.failed_engines == jf.failed_engines == 1
+
+
+def test_engine_fail_behind_a_disagg_front():
+    """ROADMAP C11: the reference's ``DisaggFront`` has no ``fail_engine``
+    or ``num_engines``, so its supervisor raises AttributeError when a
+    decode engine dies behind the front; the port's front delegates both
+    to its router and fails the engine over losslessly, with the tokens
+    the reference's router gives for the same requests."""
+    fronts = _routers(fronts=True)
+    reqs = _serve_requests(6, 6)
+    plan = [dict(kind="engine_fail", round=1, target=0)]
+    out = {}
+    for k, mod, make, plan_async, extra in (
+            ("jax", jfault, jmake_fleet, jplan_async, {}),
+            ("torch", tfault, tmake_fleet, tplan_async, {"device": "cpu"})):
+        env = jax_make_env("Ant") if k == "jax" else \
+            interop.env_like("Ant", jax_make_env("Ant").mega)
+        layout = plan_async(3, 2, 2, devices=list(range(6)),
+                            devices_per_gpu=2, **extra)
+        f = fronts[k]
+        sup = make(env, layout, plan=_events(mod, plan), router=f,
+                   num_envs=N, num_steps=T, **extra)
+        for q in reqs[k]:
+            f.submit(q)
+        sup.step_serving()              # prefills migrate, decode starts
+        sup.plan.advance(1)
+        if k == "jax":
+            with pytest.raises(AttributeError, match="fail_engine"):
+                sup.drain_serving()
+            continue
+        idx = {r.rid: i for i, r in enumerate(reqs[k])}
+        out = {idx[c.rid]: (c.tokens, c.status)
+               for c in list(f.completions) + sup.drain_serving()}
+        assert [x["kind"] for x in sup.failures] == ["engine_fail"]
+        assert f.num_engines == 1 and f.router.failed_engines == 1
+    assert len(out) == 6 and all(s == "ok" for _, s in out.values())
+    # the same requests through the reference's plain router, no fault
+    jr = _routers(fronts=False)["jax"]
+    for q in _serve_requests(6, 6)["jax"]:
+        jr.submit(q)
+    want = sorted(c.tokens for c in jr.drain())
+    assert sorted(t for t, _ in out.values()) == want
