@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's seven paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's ten paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
 internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
 synchronous PPO (several GMIs on one card, one CUDA stream each), async
 A3C under the fleet supervisor (faults, checkpoints) and the online GMI
-controller, and disaggregated prefill/decode serving over GMIs with cache
-migration, under the same supervisor and controller.
+controller, disaggregated prefill/decode serving over GMIs with cache
+migration, under the same supervisor and controller, PPO over the
+multi-agent env family, and serving the mixture-of-experts family at
+granite-moe-1b-a400m's and Mamba2/zamba2 at zamba2-7b's full width.
 
     python3 chip_smoke.py
 
@@ -36,7 +38,12 @@ each asserting, in order:
    the run); flash attention in bf16 at the prefill shapes of phase 8, at
    the launcher's eight 512-token prompts, at phase 14's prefill GMI's
    whole-prompt B = 1 x 896 and at phase 11's two
-   dispatches, 2 x 512 and 2 x 128 at stablelm-12b's heads; paged decode
+   dispatches, 2 x 512 and 2 x 128 at stablelm-12b's heads; both
+   attention kernels at phase 16's shapes (granite-moe-1b-a400m, 16 q on
+   8 kv heads, hd 64: paged decode B = 8, flash 4 x 512 and 4 x 128) and
+   at phase 17's (zamba2-7b, 32 q on 32 kv heads, hd 112: paged decode
+   B = 4, flash 2 x 512 and 2 x 256); the trunk also at phase 15's Ant
+   widths, N = 16384; paged decode
    calls queued back to back at B = 8, 1 and 4 (4, 32 and 8 splits) and
    two at once on two streams; chunkwise mLSTM at phase 10's shapes,
    B = 4, 4 heads, S = 512, dh 512, chunk 256 from a zero state, and
@@ -156,9 +163,11 @@ each asserting, in order:
    discarded batch);
 13. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (flash at
-   phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512 and at
-   phase 11's stablelm-12b B = 2 x 512, hd 160, in the row's ``shapes``
-   list), and the device time of every kernel (and of the library call,
+   phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512, at
+   phase 11's stablelm-12b B = 2 x 512, hd 160, and at phase 17's
+   zamba2-7b B = 2 x 512, hd 112, in the row's ``shapes`` list; paged
+   decode at phase 8's step and at phase 17's, B = 4, hd 112, in its
+   ``shapes`` list), and the device time of every kernel (and of the library call,
    where there is one) under ``torch.profiler``, since small calls are
    host-bound, by launched kernel where a call launches more than one (a
    profile that sees no kernel is taken again, with a warning line); the
@@ -195,7 +204,40 @@ each asserting, in order:
    prints its decisions; (c) ``make_async_runner(..., router=front,
    online_controller=True)`` over an A3C fleet with the small front,
    traffic outrunning its slots: at least one serving decision applied,
-   every request completed, trained == predicted.
+   every request completed, trained == predicted;
+15. (also before 13) multi-agent PPO: (a) one fused iteration over the
+   4-agent Ant (8 worlds, T = 4, one world at its episode cap) on the card
+   against the CPU with the same noise and permutations: bookkeeping and
+   the done fraction exact, params within 1e-5; (b) 16,384 agents (4,096
+   worlds of 32 joints), T = 16, ``use_fused_kernels=True``, 3 iterations
+   with the launch counters set to 0 just before and read just after:
+   the trunk 17 times and GAE once an iteration, no env-step kernel (the
+   family runs the plain step); env steps/s printed beside 16,384
+   single-agent Ant envs on the plain step and on the env megakernel;
+16. (also before 13) ``moe_apply`` in f32 on the card against the CPU with
+   assignments dropped by capacity (slots exact, out 1e-5); then
+   granite-moe-1b-a400m at full width in bf16 (24 layers, d 1024, 16 q
+   on 8 kv heads, hd 64, 32 experts top-8, random weights from seed 0),
+   8 slots, ``max_seq`` 1024, whole-prompt prefill, four 512-token and
+   four 128-token prompts, 64 greedy tokens each, the launch counters
+   set to 0 just before and read just after: one flash launch per layer
+   per whole-prompt dispatch, one paged-decode launch per layer per
+   decode step; it prints prefill and decode tok/s, peak device memory,
+   the share of expert assignments dropped by capacity in the two
+   prefill dispatches and the ``oracle_generate`` match count of two
+   requests (printed, not asserted);
+17. (also before 13) a small f32 hybrid engine (reduced zamba2, chunked
+   at 16 tokens with a 48-token prompt, and whole-prompt) on the card
+   against the CPU: greedy tokens and page tables identical, Mamba2
+   states within 1e-4; then zamba2-7b at full width in bf16 (d 3584, 32
+   heads on 32, hd 112, N 64, random weights from seed 0, ``Z_SUPER`` of
+   its 9 super-blocks), 4 slots, ``max_seq`` 1024, whole-prompt prefill,
+   two 512-token and two 256-token prompts, 32 greedy tokens each, the
+   launch counters set to 0 just before and read just after: one flash
+   launch per shared-attention application per whole-prompt dispatch at
+   hd 112, one paged-decode launch per application per decode step; it
+   prints tok/s, peak device memory and the ``oracle_generate`` match
+   count of two requests.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -233,7 +275,7 @@ FLASH_SHAPES = [(3, 128), (4, 512), (8, 512), (1, 896)]
 # launcher's at internlm2-1.8b's heads, and phase 11's two 512-token
 # prompts at stablelm-12b's (hd 160, run at the padded width 192)
 FLASH_TIMED = [(3, 128, 16, 8, 128), (8, 512, 16, 8, 128),
-               (2, 512, 32, 8, 160)]
+               (2, 512, 32, 8, 160), (2, 512, 32, 32, 112)]
 # kernels that must reach the tensor cores: (library stem, kernel name)
 TENSOR_CORE = [("env_megakernel", "env_mega_step_kernel"),
                ("flash_attention", "flash_attention_mma_kernel"),
@@ -306,6 +348,23 @@ D_FLEET_EVENTS = [("engine_fail", 1, 0), ("prefill_fail", 2, 0),
                   ("channel_drop", 2, None)]
 D_FLEET_ROUNDS = 4
 D_ARBITER_ROUNDS = 4
+# phase 15: agents a world, the small check's worlds and steps, and the
+# iterations of the full-width run (N_MAIN agents, T_MAIN steps)
+MA_AGENTS, MA_SMALL_WORLDS, MA_SMALL_T, MA_ITERS = 4, 8, 4, 3
+# phase 16: granite-moe-1b-a400m's traffic (prompt lengths, greedy tokens
+# each), its decode positions of the 8 slots near the end of the run and
+# its two whole-prompt dispatches (B, S)
+MARCH = "granite-moe-1b-a400m"
+M_PROMPTS, M_GEN = (512,) * 4 + (128,) * 4, 64
+M_DECODE_POS = [574] * 4 + [190] * 4
+M_FLASH_SHAPES = [(4, 512), (4, 128)]
+# phase 17: zamba2-7b's super-blocks run (of 9), traffic, decode positions
+# of its 4 slots near the end of the run and its two dispatches (B, S)
+ZARCH = "zamba2-7b"
+Z_SUPER = 9
+Z_PROMPTS, Z_GEN = (512, 512, 256, 256), 32
+Z_DECODE_POS = [543, 543, 287, 287]
+Z_FLASH_SHAPES = [(2, 512), (2, 256)]
 # mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
 # dispatch and of the 768-token prompt's second chunk
 MLSTM_MAIN = [(4, 4, 512, 512, 256, True), (1, 4, 256, 512, 256, False)]
@@ -1582,6 +1641,57 @@ def check_small_xlstm_engine(dev):
     return launches
 
 
+def serve_stats(eng, done, reqs, wall, setup_s, gen_tokens):
+    tel = eng.telemetry
+    assert len(done) == len(reqs) and all(
+        c.status == "ok" and len(c.tokens) == gen_tokens for c in done)
+    assert all(0 <= t < eng.cfg.vocab_size for c in done for t in c.tokens)
+    gen = tel.total_tokens - len(reqs)
+    return {
+        "setup_s": setup_s, "wall_s": wall,
+        "prompt_tokens": tel.total_prompt_tokens,
+        "generated_tokens": tel.total_tokens,
+        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
+        "decode_tok_s": gen / tel.total_decode_s,
+        "decode_steps": tel.total_decode_steps,
+        "decode_ms_per_step": 1e3 * tel.total_decode_s
+        / tel.total_decode_steps,
+        "prefill_dispatches": eng.prefill_dispatches,
+        "end_to_end_tok_s": tel.total_tokens / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(eng.device) / 1e9}
+
+
+def oracle_agreement(eng, done, reqs):
+    """How many greedy tokens of each request match ``oracle_generate``
+    (printed, not asserted: bf16 GEMMs at B = 1 and at the batch round
+    differently), with the B = 1 path's top-2 logit margin at the first
+    divergence: prefill the prompt, then decode the oracle's own tokens up
+    to it through a dense cache."""
+    from repro_torch.models import transformer as T
+    by_rid = {c.rid: c.tokens for c in done}
+    agree = []
+    for r in reqs:
+        orc = eng.oracle_generate(r)
+        got = by_rid[r.rid]
+        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
+                 len(orc))
+        margin = None
+        if n < len(orc):
+            lg, cache = T.prefill(eng.params, eng.cfg, {"tokens": torch.as_tensor(
+                r.tokens[None], device=eng.device)}, eng.max_seq)
+            for i in range(n):
+                lg, cache = T.decode_step(
+                    eng.params, eng.cfg, torch.tensor([orc[i]],
+                                                      device=eng.device),
+                    torch.tensor([len(r.tokens) + i], device=eng.device),
+                    cache)
+            top = torch.topk(lg[0].float(), 2).values
+            margin = float(top[0] - top[1])
+        agree.append({"prompt": len(r.tokens), "matching": n,
+                      "of": len(orc), "top2_margin_at_divergence": margin})
+    return agree
+
+
 def run_xlstm(dev):
     """xlstm-1.3b at full width in bf16, random weights from seed 0: the
     phase-10 traffic through a paged ``ServeEngine``, with the launch
@@ -1628,47 +1738,11 @@ def run_xlstm(dev):
     want["mlstm_chunkwise"] = per_prefill * (eng.prefill_dispatches + chunks)
     assert launches == want, (launches, want)
     assert tel.total_decode_steps >= 63
-    assert len(done) == len(reqs) and all(
-        c.status == "ok" and len(c.tokens) == 64 for c in done)
-    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
-    gen = tel.total_tokens - len(reqs)
-    stats = {
-        "setup_s": setup_s, "wall_s": wall,
-        "prompt_tokens": tel.total_prompt_tokens,
-        "generated_tokens": tel.total_tokens,
-        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
-        "decode_tok_s": gen / tel.total_decode_s,
-        "decode_steps": tel.total_decode_steps,
-        "decode_ms_per_step": 1e3 * tel.total_decode_s
-        / tel.total_decode_steps,
-        "prefill_dispatches": eng.prefill_dispatches,
-        "prefill_chunks": chunks,
-        "end_to_end_tok_s": tel.total_tokens / wall,
-        "cache_gb": eng.cache_bytes / 1e9,
-        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    # oracle agreement (printed), with the B = 1 path's top-2 logit margin
-    # at the first divergence: prefill the prompt, then decode the oracle's
-    # own tokens up to it (xlstm's dense cache needs no page table)
-    by_rid = {c.rid: c.tokens for c in done}
-    agree = []
-    for r in (reqs[4], reqs[7]):       # a 128-token and the 768-token prompt
-        orc = eng.oracle_generate(r)
-        got = by_rid[r.rid]
-        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
-                 len(orc))
-        margin = None
-        if n < len(orc):
-            lg, cache = T.prefill(eng.params, cfg, {"tokens": torch.as_tensor(
-                r.tokens[None], device=dev)}, eng.max_seq)
-            for i in range(n):
-                lg, cache = T.decode_step(
-                    eng.params, cfg, torch.tensor([orc[i]], device=dev),
-                    torch.tensor([len(r.tokens) + i], device=dev), cache)
-            top = torch.topk(lg[0].float(), 2).values
-            margin = float(top[0] - top[1])
-        agree.append({"prompt": len(r.tokens), "matching": n,
-                      "of": len(orc), "top2_margin_at_divergence": margin})
-    stats["oracle"] = agree
+    stats = serve_stats(eng, done, reqs, wall, setup_s, 64)
+    stats["prefill_chunks"] = chunks
+    stats["cache_gb"] = eng.cache_bytes / 1e9
+    # a 128-token and the 768-token prompt
+    stats["oracle"] = oracle_agreement(eng, done, [reqs[4], reqs[7]])
     return launches, stats
 
 
@@ -1706,42 +1780,12 @@ def run_serve(dev):
     assert launches == want, (launches, want)
     assert eng.prefill_dispatches >= 1 and tel.total_decode_steps >= 63
     reqs = longs + shorts + [huge]
-    assert len(done) == len(reqs) and all(
-        c.status == "ok" and len(c.tokens) == 64 for c in done)
-    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
     # the shared head's full pages are published in the prefix index
     assert eng.shared_head_pages(longs[1].tokens[:256]) == \
         256 // eng.page_size
-    gen = tel.total_tokens - len(reqs)
-    stats = {
-        "setup_s": setup_s, "wall_s": wall,
-        "prompt_tokens": tel.total_prompt_tokens,
-        "generated_tokens": tel.total_tokens,
-        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
-        "decode_tok_s": gen / tel.total_decode_s,
-        "decode_steps": tel.total_decode_steps,
-        "decode_ms_per_step": 1e3 * tel.total_decode_s
-        / tel.total_decode_steps,
-        "prefill_dispatches": eng.prefill_dispatches,
-        "end_to_end_tok_s": tel.total_tokens / wall,
-        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    # oracle agreement (printed): a short and the long chunked request
-    by_rid = {c.rid: c.tokens for c in done}
-    agree = []
-    for r in (shorts[0], huge):
-        orc = eng.oracle_generate(r)
-        got = by_rid[r.rid]
-        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
-                 len(orc))
-        margin = None
-        if n < len(orc):
-            toks = torch.as_tensor(list(r.tokens) + orc[:n], device=dev)
-            lg = T.forward(eng.params, cfg, {"tokens": toks[None]})[0, -1]
-            top = torch.topk(lg.float(), 2).values
-            margin = float(top[0] - top[1])
-        agree.append({"prompt": len(r.tokens), "matching": n,
-                      "of": len(orc), "top2_margin_at_divergence": margin})
-    stats["oracle"] = agree
+    stats = serve_stats(eng, done, reqs, wall, setup_s, 64)
+    # a short and the long chunked request
+    stats["oracle"] = oracle_agreement(eng, done, [shorts[0], huge])
     return launches, stats, eng
 
 
@@ -1785,35 +1829,9 @@ def run_stablelm(dev):
     want["flash_attention"] = SLAYERS * eng.prefill_dispatches
     assert launches == want, (launches, want)
     assert eng.prefill_dispatches >= 1 and tel.total_decode_steps >= 31
-    assert len(done) == len(reqs) and all(
-        c.status == "ok" and len(c.tokens) == 32 for c in done)
-    assert all(0 <= t < cfg.vocab_size for c in done for t in c.tokens)
-    gen = tel.total_tokens - len(reqs)
-    stats = {
-        "layers": f"{SLAYERS} of {full.num_layers}",
-        "setup_s": setup_s, "wall_s": wall,
-        "prompt_tokens": tel.total_prompt_tokens,
-        "generated_tokens": tel.total_tokens,
-        "prefill_tok_s": tel.total_prompt_tokens / tel.total_prefill_s,
-        "decode_tok_s": gen / tel.total_decode_s,
-        "decode_steps": tel.total_decode_steps,
-        "decode_ms_per_step": 1e3 * tel.total_decode_s
-        / tel.total_decode_steps,
-        "prefill_dispatches": eng.prefill_dispatches,
-        "end_to_end_tok_s": tel.total_tokens / wall,
-        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    # oracle agreement (printed, not asserted: bf16 GEMMs at B = 1 and
-    # B = 4 round differently)
-    by_rid = {c.rid: c.tokens for c in done}
-    agree = []
-    for r in (reqs[0], reqs[2]):
-        orc = eng.oracle_generate(r)
-        got = by_rid[r.rid]
-        n = next((i for i, (a, b) in enumerate(zip(orc, got)) if a != b),
-                 len(orc))
-        agree.append({"prompt": len(r.tokens), "matching": n,
-                      "of": len(orc)})
-    stats["oracle"] = agree
+    stats = {"layers": f"{SLAYERS} of {full.num_layers}",
+             **serve_stats(eng, done, reqs, wall, setup_s, 32)}
+    stats["oracle"] = oracle_agreement(eng, done, [reqs[0], reqs[2]])
     return launches, stats
 
 
@@ -2214,6 +2232,321 @@ def run_disagg_arbiter(dev):
     return launches, sizes, serving, runner
 
 
+# ------------------------------------------------- multi-agent PPO ----
+def check_multi_agent_small(dev):
+    """Phase 15 (a): one fused PPO iteration over the 4-agent Ant (8
+    worlds, 32 agents, T = 4, world 2 at its episode cap so its agents
+    reset on the first step) on the card against the plain path on the
+    CPU, from the same params, env state, noise and permutations: env
+    bookkeeping (t, seed, resets) and the episode-done fraction exact,
+    every world's agents done together, params within 1e-5 after an
+    update that moved some param by more than 1e-4."""
+    from repro_torch.envs import make_multi_agent_env
+    from repro_torch.kernels import ops
+    from repro_torch.models.policy import init_policy
+    from repro_torch.rl.ppo import PPOConfig, train_iteration
+    from repro_torch.optim import adam_init
+    from repro_torch.utils import tree_leaves, tree_map
+    cfg = PPOConfig(num_steps=MA_SMALL_T, num_epochs=2, num_minibatches=2,
+                    use_fused_kernels=True)
+    K, W = MA_AGENTS, MA_SMALL_WORLDS
+    n = K * W
+    cpu_env = make_multi_agent_env("Ant", K, device="cpu")
+    dims = cpu_env.spec.policy_dims
+    g = torch.Generator("cpu").manual_seed(3)
+    p = init_policy(g, dims)
+    o = adam_init(p)
+    es, ob = cpu_env.reset(g, n)
+    es = es._replace(t=es.t.index_fill(
+        0, torch.tensor([2]), cpu_env.spec.max_episode_len - 1))
+    ob = cpu_env._obs(es)
+    noise = torch.randn((cfg.num_steps, n, dims[-1]), generator=g)
+    perms = torch.stack([torch.randperm(cfg.num_steps * n, generator=g)
+                         for _ in range(cfg.num_epochs)])
+    p0 = [t.clone() for t in tree_leaves(p)]
+    out, launches = {}, None
+    for d in ("cpu", dev):
+        env = make_multi_agent_env("Ant", K, device=d)
+        mv = lambda x: tree_map(lambda t: t.to(d), x)
+        ops.reset_launches()
+        res = train_iteration(mv(p), mv(o), env, mv(es), ob.to(d), None, cfg,
+                              noise=noise.to(d), perms=perms.to(d))
+        launches = dict(ops.LAUNCHES)
+        out[str(d)] = tree_map(lambda t: t.cpu(), (res[0], res[2], res[5]))
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out[str(dev)]
+    for f in ("t", "seed", "resets"):
+        assert torch.equal(getattr(sc, f), getattr(sg, f)), f
+    assert int(sc.resets[2]) == 1
+    assert float(mc["episode_done_frac"]) == float(mg["episode_done_frac"])
+    assert float(mc["episode_done_frac"]) == 1 / (W * cfg.num_steps)
+    moved = max(max_err(a, b) for a, b in zip(tree_leaves(pc), p0))
+    assert moved > 1e-4, ("no update on the CPU", moved)
+    perr = max(max_err(a, b) for a, b in zip(tree_leaves(pc),
+                                             tree_leaves(pg)))
+    assert perr <= 1e-5, ("params card vs CPU", perr)
+    want = {k: 0 for k in TOL}
+    want.update({"policy_mlp": cfg.num_steps + 1, "gae_norm": 1})
+    assert launches == want, (launches, want)
+    return perr, moved, launches
+
+
+def ppo_rate(env, n, iters=MA_ITERS, count=False):
+    """``iters`` fused PPO iterations of ``n`` envs (T = T_MAIN) on the
+    card: (launches or None, per-iteration s, env steps/s over iterations
+    2 onwards); with ``count`` the launch counters are set to 0 just
+    before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
+    from repro_torch.utils import tree_leaves
+    cfg = PPOConfig(num_steps=T_MAIN, use_fused_kernels=True)
+    dev = env.device
+    state = list(init_train(0, env, env.spec.policy_dims, n, device=dev))
+    step = make_train_step(env, cfg)
+    torch.cuda.synchronize()
+    if count:
+        ops.reset_launches()
+    it_s = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        *state, metrics = step(*state)
+        torch.cuda.synchronize()
+        it_s.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES) if count else None
+    assert all(bool(t.isfinite().all()) for t in tree_leaves(state[0]))
+    assert all(v == v for v in map(float, metrics.values())), metrics
+    return launches, it_s, (iters - 1) * T_MAIN * n / sum(it_s[1:])
+
+
+def run_multi_agent(dev):
+    """Phase 15 (b): fused PPO over the 4-agent Ant at full width, 16,384
+    agents (4,096 worlds of 32 joints), T = 16, 3 iterations, with the
+    launch counters set to 0 just before and read just after: the trunk
+    T + 1 times an iteration, GAE once, no env-step kernel (the family
+    runs the plain step).  Then 16,384 single-agent Ant envs the same way
+    (plain step) and on the env megakernel, for their env steps/s."""
+    from repro_torch.envs import make_env, make_multi_agent_env
+    env = make_multi_agent_env("Ant", MA_AGENTS, device=dev)
+    launches, it_s, rate = ppo_rate(env, N_MAIN, count=True)
+    want = {k: 0 for k in TOL}
+    want.update({"policy_mlp": (T_MAIN + 1) * MA_ITERS,
+                 "gae_norm": MA_ITERS})
+    assert launches == want, (launches, want)
+    _, s1, r1 = ppo_rate(make_env("Ant", device=dev), N_MAIN)
+    _, s2, r2 = ppo_rate(make_env("Ant", megakernel=True, device=dev),
+                         N_MAIN)
+    return launches, {"multi_agent": (it_s, rate), "single_plain": (s1, r1),
+                      "single_megakernel": (s2, r2)}
+
+
+# ------------------------------------------------------- MoE serving ----
+def check_moe_small(dev):
+    """Phase 16, first: ``moe_apply`` in f32 on the card against the CPU at
+    a capacity factor that drops assignments (B = 3, S = 64, d 64, 8
+    experts top-2, factor 0.5, and 16-token routing blocks): routing
+    slots and validity exact, out within 1e-5."""
+    from repro_torch.models import moe
+    g = torch.Generator("cpu").manual_seed(5)
+    p = moe.init_moe(g, 64, 96, 8)
+    x = torch.randn((3, 64, 64), generator=g)
+    err, dropped = 0.0, 0
+    for rb in (0, 16):
+        res = {}
+        for d in ("cpu", dev):
+            pd = {k: v.to(d) for k, v in p.items()}
+            xd = x.to(d)
+            logits = xd @ pd["router"]
+            slot, _, valid = moe._route(logits, 2, 8, 8)
+            out, aux = moe.moe_apply(pd, xd, num_experts=8, top_k=2,
+                                     capacity_factor=0.5, route_block=rb)
+            res[str(d)] = (slot.cpu(), valid.cpu(), out.cpu(), aux.cpu())
+        (s0, v0, o0, a0), (s1, v1, o1, a1) = res["cpu"], res[str(dev)]
+        assert torch.equal(s0, s1) and torch.equal(v0, v1)
+        err = max(err, max_err(o0, o1), float((a0 - a1).abs()))
+        dropped = int((~v0).sum())
+    assert dropped > 0 and err <= 1e-5, (dropped, err)
+    return err, dropped
+
+
+def drop_share(eng, prompts):
+    """The share of expert assignments dropped by capacity when each group
+    of same-length prompts is prefilled as the engine dispatches it, in
+    all and by layer (summed over the groups): ``moe._route`` wrapped to
+    count, outside any counted run."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    seen = []
+    route = moe._route
+
+    def counting(*a, **kw):
+        out = route(*a, **kw)
+        seen.append((int(out[2].sum()), out[2].numel()))
+        return out
+    moe._route = counting
+    try:
+        for toks in prompts:
+            T.prefill(eng.params, eng.cfg, {"tokens": torch.as_tensor(
+                toks, device=eng.device)}, eng.max_seq)
+    finally:
+        moe._route = route
+    kept, total = map(sum, zip(*seen))
+    L = eng.cfg.num_layers
+    by_layer = [1.0 - sum(k for k, _ in seen[i::L]) / sum(
+        t for _, t in seen[i::L]) for i in range(L)]
+    return 1.0 - kept / total, by_layer
+
+
+def run_moe(dev):
+    """granite-moe-1b-a400m at full width in bf16 (24 layers, d 1024, 16 q
+    on 8 kv heads, hd 64, 32 experts top-8, vocab 49,155), random weights
+    from seed 0: four 512-token and four 128-token prompts, 64 greedy
+    tokens each, through a paged ``ServeEngine`` of 8 slots with
+    whole-prompt prefill (``moe_route_block`` is 0, so no chunking), the
+    launch counters set to 0 just before and read just after."""
+    import numpy as np
+    from repro_torch.configs import get_config, granite_moe_1b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    cfg = get_config(MARCH)
+    assert cfg.moe_route_block == 0 and cfg.dtype == "bfloat16"
+    if cfg == granite_moe_1b.FULL:
+        assert (cfg.num_layers, cfg.d_model, cfg.num_experts,
+                cfg.experts_per_token, cfg.resolved_head_dim) == \
+            (24, 1024, 32, 8, 64)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, T.init_model(0, cfg, dev), max_slots=8,
+                      max_seq=1024, device=dev)
+    eng.serve([Request(tokens=list(range(1, 40)), max_new_tokens=3)])
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=M_GEN) for n in M_PROMPTS]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    L = cfg.num_layers
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = L * tel.total_decode_steps
+    want["flash_attention"] = L * eng.prefill_dispatches
+    assert launches == want, (launches, want)
+    assert eng.prefill_dispatches == 2 and tel.total_decode_steps >= 63
+    stats = serve_stats(eng, done, reqs, wall, setup_s, M_GEN)
+    groups = sorted({len(r.tokens) for r in reqs})
+    stats["prefill_drop_share"], stats["prefill_drop_share_by_layer"] = \
+        drop_share(
+        eng, [np.stack([r.tokens for r in reqs if len(r.tokens) == n])
+              for n in groups])
+    stats["oracle"] = oracle_agreement(eng, done, [reqs[0], reqs[4]])
+    return launches, stats
+
+
+# -------------------------------------------------- zamba2 serving ----
+def check_zamba2_small(dev):
+    """Phase 17, first: a small f32 hybrid engine (reduced zamba2: one
+    Mamba2 block and the shared attention block, d = 256, hd 64) on the
+    card and on the CPU from the same params, chunked (16-token chunks,
+    a 48-token prompt among shorter ones) and whole-prompt: greedy tokens
+    identical, page tables equal, every slot's Mamba2 state within 1e-4
+    at the end."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_reduced(ZARCH)
+    params = T.init_model(0, cfg, "cpu")
+    worst, launches = 0.0, {}
+    for chunk in (16, 0):
+        toks, states = {}, {}
+        for d in ("cpu", dev):
+            eng = ServeEngine(cfg, params, max_slots=3, max_seq=96, device=d,
+                              chunk_prefill=chunk)
+            rng = np.random.default_rng(2)
+            reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                            max_new_tokens=10) for n in (48, 12, 20, 48, 7)]
+            ops.reset_launches()
+            done = eng.serve(reqs)
+            if d != "cpu":
+                launches[chunk] = dict(ops.LAUNCHES)
+            assert len(done) == 5 and all(len(c.tokens) == 10 for c in done)
+            toks[str(d)] = sorted((len(c.request.tokens), c.tokens)
+                                  for c in done)
+            states[str(d)] = ([t.cpu() for t in eng._caches["mamba2_0"]],
+                              eng._table.copy())
+        assert toks["cpu"] == toks[str(dev)], ("tokens differ", chunk)
+        (sc, tc), (sg, tg) = states["cpu"], states[str(dev)]
+        assert (tc == tg).all()
+        worst = max(worst, max(max_err(a, b) for a, b in zip(sc, sg)))
+    assert worst <= 1e-4, worst
+    assert launches[0]["flash_attention"] > 0 and \
+        launches[16]["paged_attention"] > 0, launches
+    return worst, launches
+
+
+def run_zamba2(dev):
+    """zamba2-7b at full width in bf16 (d 3584, 32 heads on 32, hd 112,
+    N 64, vocab 32,000; ``Z_SUPER`` of 9 super-blocks of 8 Mamba2 + the
+    shared attention block), random weights from seed 0: two 512-token and
+    two 256-token prompts, 32 greedy tokens each, through a paged
+    ``ServeEngine`` of 4 slots with whole-prompt prefill, the launch
+    counters set to 0 just before and read just after."""
+    import numpy as np
+    from repro_torch.configs import get_config, zamba2_7b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    full = get_config(ZARCH)
+    cfg = full.replace(num_super=Z_SUPER,
+                       num_layers=Z_SUPER * len(full.block_pattern))
+    assert full.dtype == "bfloat16"
+    if full == zamba2_7b.FULL:
+        assert (full.d_model, full.resolved_head_dim, full.num_heads,
+                full.num_kv_heads, full.ssm_state_dim, full.num_super) == \
+            (3584, 112, 32, 32, 64, 9)
+    t0 = time.perf_counter()
+    params = T.init_model(0, cfg, dev)
+    eng = ServeEngine(cfg, params, max_slots=4, max_seq=1024, device=dev)
+    del params
+    eng.serve([Request(tokens=list(range(1, 33)), max_new_tokens=3)])
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=Z_GEN) for n in Z_PROMPTS]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    shared = cfg.layer_kinds.count("attn_shared")
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = shared * tel.total_decode_steps
+    want["flash_attention"] = shared * eng.prefill_dispatches
+    assert launches == want, (launches, want)
+    assert eng.prefill_dispatches == 2 and tel.total_decode_steps >= 31
+    stats = serve_stats(eng, done, reqs, wall, setup_s, Z_GEN)
+    stats["super_blocks"] = f"{Z_SUPER} of {full.num_super}"
+    stats["layer_applications"] = len(cfg.layer_kinds)
+    stats["cache_gb"] = eng.cache_bytes / 1e9
+    stats["oracle"] = oracle_agreement(eng, done, [reqs[0], reqs[2]])
+    return launches, stats
+
+
 def paged_bound(args):
     """Bytes and operations of one paged decode call on these inputs:
     q and out, the table and positions, and each row's mapped pages that
@@ -2345,8 +2678,11 @@ def main() -> int:
                              for with_ring in (False, True)),
         "gae_norm": max(check_gae(T_MAIN, n, gen, dev)
                         for n in (N_MAIN,) + GMI_N),
-        "policy_mlp": max(check_trunk(trunk_dims, n, gen, dev)
-                          for n in (N_MAIN,) + GMI_N),
+        "policy_mlp": max([check_trunk(trunk_dims, n, gen, dev)
+                           for n in (N_MAIN,) + GMI_N]
+                          # phase 15's Ant trunk at N_MAIN agents
+                          + [check_trunk(SPECS["Ant"].policy_dims[:-1],
+                                         N_MAIN, gen, dev)]),
         "nstep_returns": max(check_nstep(T_MAIN, n, gen, dev)
                              for n in (N_MAIN,) + GMI_N),
         "pack_channels": check_pack(T_MAIN, N_A3C, spec, gen, dev, 3),
@@ -2380,6 +2716,27 @@ def main() -> int:
     errs["paged_attention"] = max(errs["paged_attention"], paged_s[0])
     ulps["paged_attention"] = max(ulps["paged_attention"], paged_s[1])
     flash += flash_s
+    # phases 16 and 17: granite-moe-1b-a400m's 16 q on 8 kv heads at hd
+    # 64, zamba2-7b's 32 on 32 at hd 112 (flash at the padded width 128)
+    zpaged = {}
+    for arch, B, pos, shapes in ((MARCH, 8, M_DECODE_POS, M_FLASH_SHAPES),
+                                 (ZARCH, 4, Z_DECODE_POS, Z_FLASH_SHAPES)):
+        ac = get_config(arch)
+        AH, AKH, AHD = ac.num_heads, ac.num_kv_heads, ac.resolved_head_dim
+        pa = paged_inputs(B, AH, AKH, AHD, 8, 128, pos, gen, dev, bf)
+        zpaged[arch] = pa
+        pe = check_paged(pa, 0.0)
+        fe = [check_flash(flash_inputs(b, sq, AH, AKH, AHD, gen, dev, bf),
+                          0.0) for b, sq in shapes]
+        print(f"[check] {arch} main-path shapes ({AH} q on {AKH} kv heads, "
+              f"hd {AHD}, bf16): paged_attention B={B} positions {pos} "
+              f"max_abs_err={pe[0]:.3g} ({pe[1]:.3g} of one bf16 ulp of each "
+              f"element, tol 1); flash_attention causal " + ", ".join(
+                  f"B={b} S={sq} max_abs_err={e:.3g} ({u:.3g} ulp)"
+                  for (b, sq), (e, u) in zip(shapes, fe)))
+        errs["paged_attention"] = max(errs["paged_attention"], pe[0])
+        ulps["paged_attention"] = max(ulps["paged_attention"], pe[1])
+        flash += fe
     errs["flash_attention"] = max(e for e, _ in flash)
     ulps["flash_attention"] = max(u for _, u in flash)
     print(check_paged_in_turns(gen, dev))
@@ -2394,7 +2751,8 @@ def main() -> int:
         print(f"[check] {k} main-path shapes: max_abs_err={e:.3g} ({tol})")
     print(f"[check] env_mega_step (both ring modes), policy_mlp, gae_norm "
           f"and nstep_returns main-path shapes include a GMI's N = "
-          f"{GMI_N[0]} and {GMI_N[1]}")
+          f"{GMI_N[0]} and {GMI_N[1]}; policy_mlp also Ant's "
+          f"{SPECS['Ant'].policy_dims[:-1]} at N = {N_MAIN}")
     f32 = torch.float32
     for kw in (dict(), dict(window=37, softcap=5.0)):
         a = paged_inputs(5, 8, 4, 64, 16, 9, [130, -1, 17, 0, 143], gen, dev,
@@ -2704,6 +3062,66 @@ def main() -> int:
           f"trained == predicted == {runner.predictions:,}; launches {la}")
     del runner
     print(f"[disagg] phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # 15. multi-agent PPO: the trunk and GAE kernels over the plain step --
+    t15 = time.perf_counter()
+    perr, moved, la = check_multi_agent_small(dev)
+    print(f"[multi_agent] (a) 4-agent Ant, {MA_SMALL_WORLDS} worlds x "
+          f"{MA_AGENTS} agents, T={MA_SMALL_T}, fused PPO iteration card vs "
+          f"CPU: t/seed/resets and done fraction equal, world 2's agents "
+          f"done together, params max_abs_err={perr:.3g} (tol 1e-5; largest "
+          f"update {moved:.3g}); launches {la}")
+    la, rates = run_multi_agent(dev)
+    by_path["multi_agent"] = la
+    print(f"[multi_agent] (b) 4-agent Ant, {N_MAIN} agents ({N_MAIN // 4} "
+          f"worlds of {4 * SPECS['Ant'].act_dim} joints), T={T_MAIN}, "
+          f"{MA_ITERS} fused PPO iterations: launches {la}; env steps/s "
+          f"(iterations 2-{MA_ITERS}) " + "; ".join(
+              f"{k} {r:,.0f} (per-iteration s {[round(x, 4) for x in s_]})"
+              for k, (s_, r) in rates.items()) + f" | {card_line()}")
+    print(f"[multi_agent] phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    # 16. granite-moe-1b-a400m serving at full width ------------------------
+    t16 = time.perf_counter()
+    err, dropped = check_moe_small(dev)
+    print(f"[moe] moe_apply f32 card vs CPU (B=3, S=64, 8 experts top-2, "
+          f"capacity factor 0.5, route_block 0 and 16; {dropped} "
+          f"assignments dropped): slots and validity equal, out "
+          f"max_abs_err={err:.3g} (tol 1e-5)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats = run_moe(dev)
+    by_path["serve_moe"] = la
+    print(f"[moe] {MARCH} full width bf16 (24 layers, d 1024, 16 q on 8 kv "
+          f"heads, hd 64, 32 experts top-8), 8 slots, max_seq 1024, "
+          f"whole-prompt prefill, 4 x 512 + 4 x 128 tokens, {M_GEN} each: "
+          f"launches {la}, stats {json.dumps(stats)}")
+    print(f"[moe] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
+          f"{stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows), "
+          f"prefill drop share {stats['prefill_drop_share']:.4f}, peak "
+          f"{stats['peak_mem_gb']:.2f} GB | {card_line()}")
+    print(f"[moe] phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    # 17. zamba2-7b serving: the shared attention at hd 112 -----------------
+    t17 = time.perf_counter()
+    worst, la = check_zamba2_small(dev)
+    print(f"[zamba2] small f32 hybrid engine ({ZARCH} reduced) card vs CPU, "
+          f"chunk 16 (a 48-token prompt) and whole-prompt: greedy tokens and "
+          f"page tables identical, Mamba2 states max_abs_err={worst:.3g} "
+          f"(tol 1e-4); launches {la}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats = run_zamba2(dev)
+    by_path["serve_zamba2"] = la
+    print(f"[zamba2] {ZARCH} full width bf16 (d 3584, 32 heads on 32, hd 112, "
+          f"N 64; {stats['super_blocks']} super-blocks, "
+          f"{stats['layer_applications']} layer applications), 4 slots, "
+          f"max_seq 1024, whole-prompt prefill, 2 x 512 + 2 x 256 tokens, "
+          f"{Z_GEN} each: launches {la}, stats {json.dumps(stats)}")
+    print(f"[zamba2] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
+          f"{stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows), "
+          f"peak {stats['peak_mem_gb']:.2f} GB | {card_line()}")
+    print(f"[zamba2] phase 17 took {time.perf_counter() - t17:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------
@@ -2758,10 +3176,13 @@ def main() -> int:
             lambda fq=fq, fk=fk, fv=fv: ref.attention_ref(fq, fk, fv),
             lambda ft=ft: sdpa(*ft, is_causal=True, enable_gqa=True),
             flash_bound(fb, fs, fh, fkh, fhd, 2), PEAK_BF16)
-    timings["paged_attention"] = (
-        lambda: ops.paged_attention(*paged_main),
-        lambda: ref.paged_attention_ref(*paged_main), None,
-        paged_bound(paged_main), PEAK_BF16)
+    paged_t = {}
+    for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
+        paged_t[(pb, pa[0].shape[1], pa[0].shape[2])] = (
+            lambda pa=pa: ops.paged_attention(*pa),
+            lambda pa=pa: ref.paged_attention_ref(*pa), None,
+            paged_bound(pa), PEAK_BF16)
+    timings["paged_attention"] = paged_t[(8, FH, FHD)]
     timings["flash_attention"] = flash_t[(3, 128, FHD)]
     (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
     timings["mlstm_chunkwise"] = (
@@ -2799,6 +3220,18 @@ def main() -> int:
                                       "library_device_ms": device_ms(l_)})
             row.update({k: v for k, v in row["shapes"][0].items()
                         if k not in ("B", "S", "hd")})
+        elif name == "paged_attention":
+            # phase 8's decode step (the row's own numbers) and phase 17's
+            # at hd 112, each in its own turns
+            row["shapes"] = []
+            for (pb, ph, phd), (k_, p_, l_, (nb, no), *pk) in \
+                    paged_t.items():
+                row["shapes"].append({"B": pb, "H": ph, "hd": phd,
+                                      **timed(k_, p_, l_, nb, no, *pk),
+                                      "device_ms": device_ms(k_),
+                                      "library_device_ms": None})
+            row.update({k: v for k, v in row["shapes"][0].items()
+                        if k not in ("B", "H", "hd")})
         else:
             row.update(timed(kern, plain, lib, nbytes, nops, *peak))
             by_kernel = device_times(kern)
@@ -2811,7 +3244,8 @@ def main() -> int:
         row["launches_by_path"] = {p: la[name] for p, la in by_path.items()}
         rows.append(row)
         for sh in row.get("shapes", [{**row, **extra}]):
-            at = (f" B={sh['B']} S={sh['S']} hd={sh['hd']}" if "B" in sh
+            at = (f" B={sh['B']} {'S' if 'S' in sh else 'H'}="
+                  f"{sh.get('S', sh.get('H'))} hd={sh['hd']}" if "B" in sh
                   else "")
             dv = (f", device time (profiler) kernel {sh['device_ms']} ms, "
                   f"library {sh['library_device_ms']} ms")

@@ -89,12 +89,13 @@ def model_params(tree, device="cpu", dtype=None):
 def cache_tree(tree, device="cpu"):
     """A reference cache tree (numpy leaves) as the port's: a stacked
     ``KVCache`` or ``PagedKVCache``, or a patterned stack's dict of those
-    and of ``MLSTMState``/``SLSTMState`` nodes.  Nodes are matched by
-    class name and read by field name; leaves keep their dtypes."""
+    and of ``MLSTMState``/``SLSTMState``/``Mamba2State`` nodes.  Nodes are
+    matched by class name and read by field name; leaves keep their
+    dtypes."""
     from repro_torch.models.attention import KVCache, PagedKVCache
-    from repro_torch.models.ssm import MLSTMState, SLSTMState
+    from repro_torch.models.ssm import Mamba2State, MLSTMState, SLSTMState
     kinds = {c.__name__: c for c in (KVCache, PagedKVCache, MLSTMState,
-                                     SLSTMState)}
+                                     SLSTMState, Mamba2State)}
 
     def node(n):
         cls = kinds[type(n).__name__]

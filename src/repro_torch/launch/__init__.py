@@ -6,6 +6,7 @@
 # controller), serve.py (the paged serving engine; --disagg: the
 # disaggregated prefill/decode front over GMIs), submesh_serving.py and
 # llm_policy_serving.py (runnable counterparts of the reference's serving
-# examples), profile.py
+# examples), multi_agent_rollout.py (counterpart of its multi-agent
+# example), profile.py
 # (device-time breakdown of one PPO iteration, of k GMIs' iteration, or of
 # serving steps).

@@ -2,12 +2,15 @@
 client of the ``repro_torch.serve`` continuous-batching engine
 (runnable counterpart of ``examples/llm_policy_serving.py``).
 
-The port serves the dense attention family and xlstm; the other families
-(MoE, Mamba2/zamba2, the vision and audio frontends) raise
-``transformer.check_supported``'s error naming ROADMAP item 16.
+The port serves the dense attention and mixture-of-experts families,
+xlstm and zamba2's Mamba2 + shared-attention stack; the vision and audio
+frontends raise ``transformer.check_supported``'s error naming ROADMAP
+item 16.
 
     PYTHONPATH=src python -m repro_torch.launch.llm_policy_serving \\
         --arch xlstm-1.3b --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.llm_policy_serving \\
+        --arch granite-moe-1b-a400m --device cuda
     PYTHONPATH=src python -m repro_torch.launch.llm_policy_serving \\
         --arch internlm2-1.8b --device cpu --batch 2 --gen 4
 """

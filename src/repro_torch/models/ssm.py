@@ -11,8 +11,10 @@ exact recurrent update, in plain ops as in the reference.  The sLSTM is
 inherently sequential: the reference's ``lax.scan`` over time becomes a
 Python loop of plain ops (the reference has no sLSTM kernel).
 
-Mamba2 (the rest of the reference module, for zamba2) is not ported yet
-(ROADMAP queue A item 16).
+Mamba2 (SSD, zamba2's backbone) runs its chunked scan with a carried
+``(h, conv)`` state as a Python loop over chunks of plain batched matrix
+products, as the reference's ``lax.scan`` of einsums (the reference has no
+Pallas kernel for it), and decodes with the exact recurrent update.
 """
 from __future__ import annotations
 
@@ -270,3 +272,135 @@ def slstm_apply(params, x, *, num_heads: int, state: SLSTMState = None):
     up, gate = torch.chunk(h @ params["w_up"].to(dt), 2, dim=-1)
     out = (up * F.gelu(gate, approximate="tanh")) @ params["w_down"].to(dt)
     return x + out, state
+
+
+# ================================================================= Mamba2 ==
+class Mamba2State(NamedTuple):
+    h: torch.Tensor      # (B,H,dh,N) ssm state
+    conv: torch.Tensor   # (B,W-1,C) conv state
+
+
+def init_mamba2(gen: torch.Generator, d_model: int, state_dim: int, *,
+                expansion: int = 2, head_dim: int = 64, conv_width: int = 4):
+    di = d_model * expansion
+    nheads = di // head_dim
+    conv_ch = di + 2 * state_dim
+    dev = gen.device
+    return {
+        "norm": {"scale": torch.ones((d_model,), device=dev)},
+        # projects to [z(di), x(di), B(N), C(N), dt(nheads)]
+        "w_in": lecun_init(gen, (d_model, 2 * di + 2 * state_dim + nheads)),
+        "conv": init_conv1d(gen, conv_ch, conv_width),
+        "A_log": torch.zeros((nheads,), device=dev),       # A = -exp(A_log)
+        "D": torch.ones((nheads,), device=dev),
+        "dt_bias": torch.zeros((nheads,), device=dev),
+        "gnorm": {"scale": torch.ones((di,), device=dev)},
+        "w_out": lecun_init(gen, (di, d_model)),
+    }
+
+
+def mamba2_init_state(batch: int, di: int, state_dim: int, head_dim: int = 64,
+                      conv_width: int = 4, dtype=torch.float32,
+                      device="cpu") -> Mamba2State:
+    nheads = di // head_dim
+    return Mamba2State(
+        h=torch.zeros((batch, nheads, head_dim, state_dim),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, conv_width - 1, di + 2 * state_dim),
+                         dtype=dtype, device=device))
+
+
+def _mamba2_proj(params, x, di, state_dim, nheads):
+    zxbcdt = x @ params["w_in"].to(x.dtype)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * state_dim]
+    dt_pre = zxbcdt[..., -nheads:]
+    return z, xbc, dt_pre
+
+
+def mamba2_apply(params, x, *, state_dim: int, state: Mamba2State = None,
+                 expansion: int = 2, head_dim: int = 64, chunk: int = 256):
+    """Mamba2 (SSD) block.  x: (B,S,D) -> (out, new_state).  Chunks of
+    ``min(chunk, S)`` steps, which must divide S, from ``state`` (zero if
+    None).  Inside a chunk the decay weights ``exp(b_t - b_s)`` are taken
+    only on and below the diagonal (the masked exponent is -inf), where
+    the reference takes them everywhere and masks after: the same values,
+    and no overflow above the diagonal."""
+    B, S, D = x.shape
+    di = D * expansion
+    nheads = di // head_dim
+    N = state_dim
+    h_in = rms_norm(params["norm"], x)
+    z, xbc, dt_pre = _mamba2_proj(params, h_in, di, N, nheads)
+    conv_state = state.conv if state is not None else None
+    xbc_c, conv_new = causal_conv1d(params["conv"], xbc, conv_state)
+    xs = xbc_c[..., :di].float()
+    Bmat = xbc_c[..., di:di + N].float()                       # (B,S,N)
+    Cmat = xbc_c[..., di + N:].float()
+    dt = F.softplus(dt_pre.float() + params["dt_bias"])        # (B,S,H)
+    A = -torch.exp(params["A_log"])                            # (H,)
+    log_decay = (dt * A).transpose(1, 2)                       # (B,H,S)
+    xh = xs.reshape(B, S, nheads, head_dim).transpose(1, 2)    # (B,H,S,dh)
+    xh_dt = xh * dt.transpose(1, 2)[..., None]
+
+    if state is None:
+        state = mamba2_init_state(B, di, N, head_dim,
+                                  params["conv"]["w"].shape[0], x.dtype,
+                                  x.device)
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"seq {S} not divisible by chunk {L}")
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    h = state.h
+    ys = []
+    for c in range(S // L):
+        sl = slice(c * L, (c + 1) * L)
+        xc, bc, cc = xh_dt[:, :, sl], Bmat[:, sl], Cmat[:, sl]
+        b = torch.cumsum(log_decay[:, :, sl], dim=-1)          # (B,H,L)
+        # intra: scores[t,s] = C_t . B_s * exp(b_t - b_s), s <= t
+        lw = b[..., :, None] - b[..., None, :]
+        w = torch.exp(torch.where(causal, lw, float("-inf")))  # (B,H,L,L)
+        cb = cc @ bc.transpose(1, 2)                           # (B,L,L)
+        y_intra = (w * cb[:, None]) @ xc
+        # inter: read the carried state
+        y_inter = torch.exp(b)[..., None] * (cc[:, None]
+                                             @ h.transpose(-1, -2))
+        ys.append(y_intra + y_inter)
+        # state update: decay each step's contribution to the chunk end
+        bl = b[..., -1:]                                       # (B,H,1)
+        w_state = torch.exp(bl - b)
+        h = torch.exp(bl)[..., None] * h + \
+            (xc * w_state[..., None]).transpose(-1, -2) @ bc[:, None]
+    y = torch.cat(ys, dim=2)                                   # (B,H,S,dh)
+    y = y + params["D"][None, :, None, None] * xh
+    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    y = rms_norm(params["gnorm"], y)
+    out = (y * F.silu(z)) @ params["w_out"].to(x.dtype)
+    return x + out, Mamba2State(h, conv_new)
+
+
+def mamba2_decode_step(params, x, state: Mamba2State, *, state_dim: int,
+                       expansion: int = 2, head_dim: int = 64):
+    """Exact recurrent single step.  x: (B,1,D)."""
+    B, _, D = x.shape
+    di = D * expansion
+    nheads = di // head_dim
+    N = state_dim
+    h_in = rms_norm(params["norm"], x)
+    z, xbc, dt_pre = _mamba2_proj(params, h_in, di, N, nheads)
+    xbc_c, conv_new = causal_conv1d(params["conv"], xbc, state.conv)
+    xs = xbc_c[:, 0, :di].float()
+    Bv = xbc_c[:, 0, di:di + N].float()
+    Cv = xbc_c[:, 0, di + N:].float()
+    dt = F.softplus(dt_pre[:, 0].float() + params["dt_bias"])  # (B,H)
+    A = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * A)
+    xh = xs.reshape(B, nheads, head_dim)
+    h_new = decay[..., None, None] * state.h + \
+        (xh * dt[..., None])[..., None] * Bv[:, None, None, :]
+    y = (h_new @ Cv[:, None, :, None])[..., 0] \
+        + params["D"][None, :, None] * xh
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = rms_norm(params["gnorm"], y)
+    out = (y * F.silu(z)) @ params["w_out"].to(x.dtype)
+    return x + out, Mamba2State(h_new, conv_new)

@@ -4,22 +4,28 @@ entry points (port of ``repro/models/transformer.py``).
 
 Params keep the reference's layout, including the stacked leading layer
 dimension of ``params["layers"]`` and, for a patterned stack (xlstm: 7 x
-mLSTM + 1 x sLSTM), of each ``params["super"]["<kind>_<i>"]`` (leading dim
-``num_super``).  The reference's ``lax.scan`` over the stack becomes a
-Python loop that hands each layer its slice of the stacked params and
-caches, and the layer writes its cache slice in place.
+mLSTM + 1 x sLSTM; zamba2: 8 x Mamba2 + 1 x shared attention), of each
+``params["super"]["<kind>_<i>"]`` (leading dim ``num_super``).  zamba2's
+``attn_shared`` positions all apply the one block ``params["shared_attn"]``
+(attention + MLP), each with a cache of its own.  A mixture-of-experts
+stack's layers hold ``lp["moe"]`` (router and expert-stacked weights,
+``models/moe.py``) in place of ``lp["mlp"]``.  The reference's
+``lax.scan`` over the stack becomes a Python loop that hands each layer
+its slice of the stacked params and caches, and the layer writes its
+cache slice in place.
 
 A patterned stack's cache is a dict keyed like its params: recurrent states
-(``ssm.MLSTMState``, ``ssm.SLSTMState``) with a leading ``num_super`` dim
-and the batch at axis 1, kept batched beside the page pool by the serving
-engine.  A dense stack's cache is one stacked ``KVCache`` or
-``PagedKVCache``.  :func:`cache_nodes` lists either form's nodes.
+(``ssm.MLSTMState``, ``ssm.SLSTMState``, ``ssm.Mamba2State``) and the
+shared attention's ``KVCache`` or ``PagedKVCache`` nodes, each with a
+leading ``num_super`` dim (the batch at axis 1 of a state), kept beside
+the page pool by the serving engine.  A dense stack's cache is one
+stacked ``KVCache`` or ``PagedKVCache``.  :func:`cache_nodes` lists
+either form's nodes.
 
-Runs the dense family and xlstm's mLSTM/sLSTM stack.  Mixture-of-experts
-stacks (``models/moe.py``), Mamba2 and zamba2's shared attention
-(``models/ssm.py``) and the vision/audio frontends raise
-``NotImplementedError``: they are ROADMAP queue A item 16's remaining
-modules.  ``loss_fn`` waits for the LM training slice (item 18).
+Runs the dense and mixture-of-experts families, xlstm's mLSTM/sLSTM stack
+and zamba2's Mamba2 + shared-attention stack.  The vision/audio frontends
+raise ``NotImplementedError``: they are ROADMAP queue A item 16's last
+family.  ``loss_fn`` waits for the LM training slice (item 18).
 """
 from __future__ import annotations
 
@@ -29,12 +35,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
-from repro_torch.models.attention import (PagedKVCache, attention,
+from repro_torch.models.attention import (KVCache, PagedKVCache, attention,
                                           init_attention_params, make_cache,
                                           make_paged_cache)
 from repro_torch.models.layers import (embed, init_embedding, init_linear,
                                        init_mlp, init_rmsnorm, linear, mlp,
                                        rms_norm, softcap, unembed)
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window" sentinel, as in the reference
@@ -48,16 +55,6 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
-            "ported yet (ROADMAP queue A item 16)")
-    other = sorted(set(cfg.block_pattern or ()) - {"mlstm", "slstm"})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {'/'.join(other)} blocks (models/ssm.py Mamba2, "
-            "zamba2's shared attention) are not ported yet (ROADMAP queue A "
-            "item 16)")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
@@ -68,22 +65,33 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ======================================================================
 def _init_attn_layer(gen: torch.Generator, cfg: ModelConfig):
-    return {
+    p = {
         "ln1": init_rmsnorm(cfg.d_model, gen.device),
         "attn": init_attention_params(gen, cfg.d_model, cfg.num_heads,
                                       cfg.num_kv_heads, cfg.resolved_head_dim,
                                       cfg.qkv_bias),
         "ln2": init_rmsnorm(cfg.d_model, gen.device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act),
     }
+    if cfg.num_experts:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act)
+    return p
 
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
+    if kind in ("attn", "attn_shared"):
+        return _init_attn_layer(gen, cfg)
     if kind == "mlstm":
         return ssm.init_mlstm(gen, cfg.d_model, cfg.num_heads,
                               expansion=cfg.ssm_expansion,
                               conv_width=cfg.conv_width)
-    return ssm.init_slstm(gen, cfg.d_model, cfg.num_heads)
+    if kind == "slstm":
+        return ssm.init_slstm(gen, cfg.d_model, cfg.num_heads)
+    if kind == "mamba2":
+        return ssm.init_mamba2(gen, cfg.d_model, cfg.ssm_state_dim,
+                               conv_width=cfg.conv_width)
+    raise ValueError(kind)
 
 
 def _init_stacked(make, n: int):
@@ -117,27 +125,35 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
         params["super"] = {
             f"{kind}_{i}": _init_stacked(lambda: _init_block(gen, kind, cfg),
                                          cfg.num_super)
-            for i, kind in enumerate(cfg.block_pattern)}
+            for i, kind in enumerate(cfg.block_pattern)
+            if kind != "attn_shared"}
+        if "attn_shared" in cfg.block_pattern:
+            params["shared_attn"] = _init_attn_layer(gen, cfg)
     else:
         params["layers"] = _init_stacked(lambda: _init_attn_layer(gen, cfg),
                                          cfg.num_layers)
     return params
 
 
+# leaves the reference reads in f32 whatever the activation type: the
+# RMSNorm scales (``rms_norm`` multiplies in f32), the sLSTM recurrent
+# weights ``r`` and Mamba2's per-head ``A_log``, ``D`` and ``dt_bias``
+_F32_LEAVES = ("scale", "r", "A_log", "D", "dt_bias")
+
+
 def cast_params(params, cfg: ModelConfig):
-    """Every float leaf except the RMSNorm scales and the sLSTM recurrent
-    weights ``r`` in ``cfg.dtype``.  The reference casts the matmul
-    weights, biases and the embedding table to the activation type inside
-    every call; that cast is exact and deterministic, so doing it once
-    gives the same numbers without re-reading the f32 weights each step.
-    The norm scales stay f32, as ``rms_norm`` multiplies in f32, and so
-    does ``r``, which the reference reads in f32."""
+    """Every float leaf except ``_F32_LEAVES`` in ``cfg.dtype``: the matmul
+    weights, biases, conv weights, the embedding table, and the MoE
+    router and expert weights.  The reference casts these to the
+    activation type inside every call; that cast is exact and
+    deterministic, so doing it once gives the same numbers without
+    re-reading the f32 weights each step."""
     dt = torch_dtype(cfg)
 
     def go(tree, key=None):
         if isinstance(tree, dict):
             return {k: go(v, k) for k, v in tree.items()}
-        if key in ("scale", "r") or not tree.is_floating_point():
+        if key in _F32_LEAVES or not tree.is_floating_point():
             return tree
         return tree.to(dt)
     return go(params)
@@ -152,22 +168,41 @@ def _stacked(one, n: int):
 
 def cache_nodes(caches):
     """A cache tree's nodes in order: the one stacked cache of a dense
-    stack, or the values of a patterned stack's dict."""
-    return list(caches.values()) if isinstance(caches, dict) else [caches]
+    stack, or the values of a patterned stack's dict in key order (the
+    order the reference's tree flattens in), so two trees of one model
+    pair node for node whatever order their dicts were built in."""
+    if isinstance(caches, dict):
+        return [caches[k] for k in sorted(caches)]
+    return [caches]
 
 
-def _recurrent_cache(cfg: ModelConfig, batch: int, dt, device):
-    """A patterned stack's states, each stacked over ``num_super``: f32
-    except the conv state, which is in the activation type."""
-    di = cfg.d_model * cfg.ssm_expansion
+def _patterned_cache(cfg: ModelConfig, batch: int, max_seq: int, window,
+                     dt, device, paged=None):
+    """A patterned stack's nodes, each stacked over ``num_super``: the
+    recurrent states (f32 except the conv state, which is in the
+    activation type) and, at ``attn_shared`` positions, a dense
+    ``KVCache`` of ``window`` (None: full depth), or with ``paged``
+    ``(page_size, num_pages)`` a batch-free paged pool."""
+    di_mlstm = cfg.d_model * cfg.ssm_expansion
+    di = cfg.d_model * 2                      # mamba2 expansion fixed at 2
     H = cfg.num_heads
+    hd = cfg.resolved_head_dim
     caches = {}
     for i, kind in enumerate(cfg.block_pattern):
         if kind == "mlstm":
-            one = ssm.mlstm_init_state(batch, H, di // H, di, cfg.conv_width,
-                                       dt, device)
-        else:
+            one = ssm.mlstm_init_state(batch, H, di_mlstm // H, di_mlstm,
+                                       cfg.conv_width, dt, device)
+        elif kind == "slstm":
             one = ssm.slstm_init_state(batch, H, cfg.d_model // H, device)
+        elif kind == "mamba2":
+            one = ssm.mamba2_init_state(batch, di, cfg.ssm_state_dim, 64,
+                                        cfg.conv_width, dt, device)
+        elif paged is not None:
+            one = make_paged_cache(paged[1], paged[0], cfg.num_kv_heads, hd,
+                                   dt, device)
+        else:
+            one = make_cache(batch, max_seq, cfg.num_kv_heads, hd, window,
+                             dt, device)
         caches[f"{kind}_{i}"] = _stacked(one, cfg.num_super)
     return caches
 
@@ -182,7 +217,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     if cfg.block_pattern:
-        return _recurrent_cache(cfg, batch, dt, device)
+        return _patterned_cache(cfg, batch, max_seq,
+                                window_override or cfg.sliding_window, dt,
+                                device)
     hd = cfg.resolved_head_dim
 
     def attn_cache(window):
@@ -201,22 +238,29 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      window_override: Optional[int] = None, dtype=None, *,
                      page_size: int, num_pages: int, device="cpu"):
     """Paged variant of :func:`init_cache`: one batch-free
-    :class:`PagedKVCache` pool per layer, stacked (page 0 = trash).  Pages
-    hold absolute positions at full depth; sliding windows apply purely
-    through masking.  Recurrent states are fixed-size per slot and stay
-    batched exactly as in :func:`init_cache`; xlstm has no attention
-    node, so its tree holds no pool at all."""
+    :class:`PagedKVCache` pool per attention layer, stacked (page 0 =
+    trash); a patterned stack's attention nodes (zamba2's) are pools
+    stacked over ``num_super``.  Pages hold absolute positions at full
+    depth; sliding windows apply purely through masking.  Recurrent
+    states are fixed-size per slot and stay batched exactly as in
+    :func:`init_cache`; xlstm has no attention node, so its tree holds no
+    pool at all."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     if cfg.block_pattern:
-        return _recurrent_cache(cfg, batch, dt, device)
+        return _patterned_cache(cfg, batch, max_seq, None, dt, device,
+                                paged=(page_size, num_pages))
     one = make_paged_cache(num_pages, page_size, cfg.num_kv_heads,
                            cfg.resolved_head_dim, dt, device)
     return _stacked(one, cfg.num_layers)
 
 
 def layer_windows(cfg: ModelConfig, window_override: Optional[int] = None):
-    """Static per-layer attention window list (BIG_WINDOW = unlimited)."""
+    """Static per-layer attention window list (BIG_WINDOW = unlimited);
+    for a patterned stack, one entry an ``attn_shared`` application."""
+    if cfg.block_pattern:
+        n = sum(1 for k in cfg.layer_kinds if k == "attn_shared")
+        return [window_override or cfg.sliding_window or BIG_WINDOW] * n
     out = []
     for i in range(cfg.num_layers):
         if cfg.local_global:
@@ -237,6 +281,8 @@ def layer_windows(cfg: ModelConfig, window_override: Optional[int] = None):
 # ======================================================================
 def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
                 page_table=None):
+    """Attention and MLP (or MoE) block; returns (x, cache, aux), aux the
+    MoE layer's load-balance loss or None."""
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
     a, cache = attention(
         lp["attn"], h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -245,7 +291,14 @@ def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
         cache=cache, page_table=page_table)
     x = x + a
     h = rms_norm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h, cfg.act), cache
+    if "moe" in lp:
+        m, aux = moe_apply(
+            lp["moe"], h, num_experts=cfg.num_experts,
+            top_k=cfg.experts_per_token, aux_coef=cfg.router_aux_coef,
+            capacity_factor=cfg.moe_capacity_factor,
+            route_block=cfg.moe_route_block)
+        return x + m, cache, aux
+    return x + mlp(lp["mlp"], h, cfg.act), cache, None
 
 
 def _layer(tree, i: int):
@@ -282,8 +335,16 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
         y, st = ssm.mlstm_apply(lp, x, num_heads=cfg.num_heads, state=cache,
                                 chunk=min(256, x.shape[1]),
                                 expansion=cfg.ssm_expansion)
-    else:
+    elif kind == "mamba2" and decode:
+        y, st = ssm.mamba2_decode_step(lp, x, cache,
+                                       state_dim=cfg.ssm_state_dim)
+    elif kind == "mamba2":
+        y, st = ssm.mamba2_apply(lp, x, state_dim=cfg.ssm_state_dim,
+                                 state=cache, chunk=min(256, x.shape[1]))
+    elif kind == "slstm":
         y, st = ssm.slstm_apply(lp, x, num_heads=cfg.num_heads, state=cache)
+    else:
+        raise ValueError(kind)
     if decode:
         _freeze_idle(cache, st, positions)
     elif cache is not None:
@@ -292,36 +353,54 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
     return y
 
 
-def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None):
+def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None,
+                     window_override: Optional[int] = None, page_table=None):
     """The reference's scan over super-blocks with the pattern unrolled
-    inside, as a Python loop; each block's state slice is written back in
-    place."""
+    inside, as a Python loop; each block's state or cache slice is written
+    back in place.  Attention positions (zamba2's ``attn_shared``) apply
+    ``params["shared_attn"]`` with their own cache, window and the page
+    table.  Returns (x, caches, aux)."""
+    w_attn = window_override or cfg.sliding_window or BIG_WINDOW
+    aux = torch.zeros((), device=x.device)
     for s in range(cfg.num_super):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{kind}_{i}"
             cache = None if caches is None else type(caches[key])(
                 *[t[s] for t in caches[key]])
-            x = _apply_kind(kind, _layer(params["super"][key], s), x, cfg,
-                            positions, cache)
-    return x, caches
+            if kind in ("attn", "attn_shared"):
+                lp = params["shared_attn"] if kind == "attn_shared" \
+                    else _layer(params["super"][key], s)
+                x, _, a = _attn_block(lp, x, cfg, positions, w_attn, cache,
+                                      page_table)
+                if a is not None:
+                    aux = aux + a
+            else:
+                x = _apply_kind(kind, _layer(params["super"][key], s), x,
+                                cfg, positions, cache)
+    return x, caches, aux
 
 
 def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
                 window_override: Optional[int] = None, page_table=None):
-    """Run the whole layer stack; returns (x, caches).  A stacked cache
-    (leading dim = layers) is written in place through per-layer views.
-    ``page_table`` (B, M) addresses every paged layer: they share one
-    physical page-id space."""
+    """Run the whole layer stack; returns (x, caches, aux), aux the MoE
+    load-balance loss summed over layers (f32, 0 without experts).  A
+    stacked cache (leading dim = layers) is written in place through
+    per-layer views.  ``page_table`` (B, M) addresses every paged layer:
+    they share one physical page-id space."""
     check_supported(cfg)
     if cfg.block_pattern:
-        return _apply_patterned(params, cfg, x, positions, caches)
+        return _apply_patterned(params, cfg, x, positions, caches,
+                                window_override, page_table)
     windows = layer_windows(cfg, window_override)
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
         ci = None if caches is None else type(caches)(*[t[i]
                                                          for t in caches])
-        x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
-                           windows[i], ci, page_table)
-    return x, caches
+        x, _, a = _attn_block(_layer(params["layers"], i), x, cfg, positions,
+                              windows[i], ci, page_table)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 # ======================================================================
@@ -344,14 +423,14 @@ def _logits(params, cfg: ModelConfig, h):
 
 def forward(params, cfg: ModelConfig, batch, *,
             window_override: Optional[int] = None):
-    """Full forward pass -> logits (B,S,V).  The reference also returns the
-    MoE aux loss, which is 0 for the dense family."""
+    """Full forward pass -> (logits (B,S,V), aux), aux the MoE load-balance
+    loss summed over layers (0 for the other families)."""
     x, positions = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
-    h, _ = apply_stack(params, cfg, x, positions,
-                       window_override=window_override)
+    h, _, aux = apply_stack(params, cfg, x, positions,
+                            window_override=window_override)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
-    return _logits(params, cfg, h)
+    return _logits(params, cfg, h), aux
 
 
 def prefill(params, cfg: ModelConfig, batch, max_seq: int,
@@ -364,8 +443,8 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
     x = x.to(torch_dtype(cfg))
     caches = init_cache(cfg, x.shape[0], max_seq, window_override,
                         torch_dtype(cfg), device=x.device)
-    h, caches = apply_stack(params, cfg, x, positions, caches=caches,
-                            window_override=window_override)
+    h, caches, _ = apply_stack(params, cfg, x, positions, caches=caches,
+                               window_override=window_override)
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], caches
 
@@ -376,9 +455,9 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches,
     ``page_table`` (B, M) is required when the caches are paged.
     Returns (logits (B,V), caches)."""
     x = embed(params["embed"], token[:, None]).to(torch_dtype(cfg))
-    h, caches = apply_stack(params, cfg, x, pos[:, None], caches=caches,
-                            window_override=window_override,
-                            page_table=page_table)
+    h, caches, _ = apply_stack(params, cfg, x, pos[:, None], caches=caches,
+                               window_override=window_override,
+                               page_table=page_table)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], caches
 
@@ -404,9 +483,9 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, positions, caches, slot,
     views = {k: view(n) for k, n in caches.items()} \
         if isinstance(caches, dict) else view(caches)
     x = embed(params["embed"], tokens[None]).to(torch_dtype(cfg))
-    h, _ = apply_stack(params, cfg, x, positions[None], caches=views,
-                       window_override=window_override,
-                       page_table=page_table[None])
+    h, _, _ = apply_stack(params, cfg, x, positions[None], caches=views,
+                          window_override=window_override,
+                          page_table=page_table[None])
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], caches
 

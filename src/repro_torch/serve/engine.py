@@ -15,12 +15,16 @@ reference:
 
 The cache is a tree (``transformer.cache_nodes``): a dense stack's one
 stacked cache, or a patterned stack's dict of nodes.  Recurrent states
-(xlstm's mLSTM/sLSTM) are fixed-size per slot and stay batched beside the
-pool: a prefill splices them into the slot's batch row, a chunked prefill
-first zeroes that row (``_reset_row``) and continues from it, and decode
-pins the rows of idle slots.  xlstm's tree holds no paged node at all, so
-its page pool is bookkeeping only, as in the reference; prefix sharing is
-off for patterned stacks, as there.
+(xlstm's mLSTM/sLSTM, zamba2's Mamba2) are fixed-size per slot and stay
+batched beside the pool: a prefill splices them into the slot's batch row,
+a chunked prefill first zeroes that row (``_reset_row``) and continues
+from it, and decode pins the rows of idle slots.  zamba2's shared
+attention applications each get a paged pool; xlstm's tree holds no paged
+node at all, so its page pool is bookkeeping only, as in the reference.
+Prefix sharing is off for patterned stacks and for mixture-of-experts
+stacks, as there; an MoE engine chunks its prefill only with
+``cfg.moe_route_block`` set, and rounds the chunk up to a multiple of it
+(the reference's rule: routing is then the same whole or chunked).
 
 On top of pages: batched prefill (same-length prompts admitted in one step
 share one prefill dispatch), chunked prefill (``chunk_prefill=C``: long
@@ -56,7 +60,7 @@ What changes in the port:
   ``serve/disagg.py``) is spliced on the engine's stream after that
   stream has waited for the payload's pack (``core/channels.py::
   CacheChannel``), and its buffers are marked as used there.
-* The MoE, Mamba2/zamba2 and multimodal families are not ported yet
+* The vision and audio frontends are not ported yet
   (``transformer.check_supported``).
 """
 from __future__ import annotations
@@ -242,7 +246,8 @@ class ServeEngine:
     ``max_slots``, ``max_seq``, ``window_override``, ``paged``,
     ``page_size``, ``num_pages`` (default ``max_slots *
     ceil(max_seq/page_size) + 1``), ``batch_prefill``, ``chunk_prefill``,
-    ``share_prefix`` (off for patterned stacks, as in the reference).
+    ``share_prefix`` (off for patterned and MoE stacks, as in the
+    reference).
     ``gmi`` is an optional ``GMIContext``: its device overrides
     ``device``, and the engine's work runs under its stream.
     ``prefill_dispatches`` counts whole-prompt prefill dispatches (each
@@ -278,6 +283,16 @@ class ServeEngine:
         self.page_size = int(page_size)
         self.batch_prefill = bool(batch_prefill) and self.paged
         self.chunk_prefill = int(chunk_prefill) if self.paged else 0
+        if self.chunk_prefill > 0 and cfg.num_experts:
+            # finite-capacity MoE routing is chunk-invariant only when
+            # chunk starts land on multiples of the routing block
+            if cfg.moe_route_block <= 0:
+                raise ValueError(
+                    "chunk_prefill with an MoE config requires "
+                    "cfg.moe_route_block > 0 (block-local routing) — "
+                    "otherwise chunked and whole prefill route differently")
+            r = cfg.moe_route_block
+            self.chunk_prefill = -(-self.chunk_prefill // r) * r
         self.telemetry = telemetry or ServingTelemetry(self.max_slots)
         # fault-injection seam: called with this engine at the top of
         # step(); raising there kills the engine mid-decode

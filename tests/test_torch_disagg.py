@@ -12,11 +12,13 @@ decisions; greedy tokens of migrated and local requests identical to the
 reference's and to the port's own ``oracle_generate``.  Float cache
 contents agree within 1e-4 plus 1e-4 of their magnitude, the cache gate of
 ``tests/test_torch_transformer.py`` (the two packages' f32 prefills do not
-round bit for bit).  The reference's ``hybrid`` case (Mamba2 and zamba2's
-shared attention) is a family the port does not run yet: its engines
-refuse it.  The reference's model calls run under ``jax.jit`` (its engines
-jit their own; the A3C runner's ``collect`` is jitted here, as in
-``tests/test_torch_fault.py``)."""
+round bit for bit).  The three cache families are the reference's: KV
+(``attention``), xlstm's recurrent states (``ssm``) and zamba2's Mamba2
+states beside the shared attention's KV (``hybrid``).  The reference's
+model calls run under ``jax.jit`` (its engines jit their own, and every
+engine of one kind reuses the first one's compiled programs,
+``tests/_jax_serve_jits.py``; the A3C runner's ``collect`` is jitted
+here, as in ``tests/test_torch_fault.py``)."""
 import dataclasses
 import os
 import subprocess
@@ -45,6 +47,8 @@ from repro_torch.models import transformer as TT
 from repro_torch import serve as tserve
 from repro_torch.serve import telemetry as ttel
 
+import _jax_serve_jits
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V = 64
 CASES = {
@@ -60,6 +64,16 @@ CASES = {
 }
 PKG = {"jax": jserve, "torch": tserve}
 _PARAMS = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _shared_reference_jits():
+    """Every reference engine of one kind reuses the first one's compiled
+    programs (``tests/_jax_serve_jits.py``): the same programs on the same
+    inputs, compiled once a module instead of once an engine."""
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_serve_jits.share(mp)
+        yield
 
 
 def params_of(case):
@@ -255,12 +269,9 @@ def test_planner_crossover_short_local_long_migrates():
 def test_migrated_decode_token_identical_to_oracle(case):
     """Prefill on a specialist GMI, cache packed over the channel, spliced
     into a decode GMI mid-batch: the reference's greedy tokens and the
-    port's own oracle's, for the KV and the xlstm cache families (a
-    sampled request, C6, against the port's oracle only)."""
-    if case == "hybrid":
-        with pytest.raises(NotImplementedError, match="item 16"):
-            make_fronts(case, planner=FORCE)
-        return
+    port's own oracle's, for the KV, the xlstm and the zamba2 (Mamba2
+    states beside the shared attention's KV) cache families (a sampled
+    request, C6, against the port's oracle only)."""
     fronts = make_fronts(case, planner=FORCE)
     pairs = reqs_mixed(4, seed=11) + [(np.arange(6), 6,
                                        dict(temperature=0.8, seed=42))]
@@ -605,9 +616,10 @@ def test_cache_channel_streams_are_skipped_on_the_cpu():
 
 def test_serving_launchers_run_without_jax():
     """``launch/serve.py --disagg`` and the two serving counterparts on the
-    CPU in a process where importing JAX fails; all default to the card
-    and refuse to run without one, and a family the port does not serve
-    raises item 16's error."""
+    CPU in a process where importing JAX fails (``llm_policy_serving``
+    over the dense, MoE and zamba2 families); all default to the card and
+    refuse to run without one, and the frontend family the port does not
+    serve yet raises item 16's error."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "from repro_torch.launch import serve, submesh_serving, "
@@ -624,12 +636,15 @@ def test_serving_launchers_run_without_jax():
         "assert len(done) == 4 and all(len(c.tokens) == 6 for c in done)\n"
         "router = submesh_serving.main(['--device', 'cpu'])\n"
         "assert sum(s.requests for s in router.per_gmi_stats()) == 20\n"
-        "done = llm_policy_serving.main(['--device', 'cpu', '--arch', "
-        "'internlm2-1.8b', '--batch', '2', '--gen', '4'])\n"
-        "assert len(done) == 2\n"
+        "for arch in ('internlm2-1.8b', 'granite-moe-1b-a400m', "
+        "'zamba2-7b'):\n"
+        "    done = llm_policy_serving.main(['--device', 'cpu', '--arch', "
+        "arch, '--batch', '2', '--gen', '4'])\n"
+        "    assert len(done) == 2 and all(len(c.tokens) == 4 "
+        "for c in done)\n"
         "try:\n"
         "    llm_policy_serving.main(['--device', 'cpu', '--arch', "
-        "'granite-moe-1b-a400m'])\n"
+        "'pixtral-12b'])\n"
         "    raise SystemExit('an unported family served')\n"
         "except NotImplementedError as e:\n"
         "    assert 'item 16' in str(e), e\n"

@@ -37,6 +37,8 @@ from repro_torch.serve import (Request, RequestRouter, ServeEngine,
                                ServingRole, merge_loads)
 from repro_torch.serve import telemetry as ttel
 
+import _jax_serve_jits
+
 V = 64
 KW = dict(name="d", num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
           d_ff=64, vocab_size=V)
@@ -48,6 +50,16 @@ PARAMS = interop.model_params(jax.tree.map(np.asarray, JPARAMS))
 COUNTS = ("tokens", "requests", "queue_depth_mean", "queue_depth_max",
           "occupancy_mean", "backlog", "slots", "mem_bytes",
           "prefill_backlog", "migrations", "free_pages", "total_pages")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _shared_reference_jits():
+    """Every reference engine of one kind reuses the first one's compiled
+    programs (``tests/_jax_serve_jits.py``): the same programs on the same
+    inputs, compiled once a module instead of once an engine."""
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_serve_jits.share(mp)
+        yield
 
 
 def jeng(i, slots=2):

@@ -27,10 +27,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.engine import _pick_tokens
 
+import _jax_serve_jits
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V = 64
 SMALL = dict(name="d", num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
              d_ff=128, vocab_size=V)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _shared_reference_jits():
+    """Every reference engine of one kind reuses the first one's compiled
+    programs (``tests/_jax_serve_jits.py``): the same programs on the same
+    inputs, compiled once a module instead of once an engine."""
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_serve_jits.share(mp)
+        yield
 
 
 def _engines(cfg_kw=SMALL, seed=3, decode_kernel=False, **kw):
