@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's ten paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's thirteen paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
 internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
 synchronous PPO (several GMIs on one card, one CUDA stream each), async
 A3C under the fleet supervisor (faults, checkpoints) and the online GMI
 controller, disaggregated prefill/decode serving over GMIs with cache
 migration, under the same supervisor and controller, PPO over the
-multi-agent env family, and serving the mixture-of-experts family at
-granite-moe-1b-a400m's and Mamba2/zamba2 at zamba2-7b's full width.
+multi-agent env family, serving the mixture-of-experts family at
+granite-moe-1b-a400m's and Mamba2/zamba2 at zamba2-7b's full width, LM
+training (``launch/train.py --workload lm``) at internlm2-1.8b's and
+hubert-xlarge's full width and depth with gradients through the attention
+and mLSTM kernels' autograd Functions, and serving pixtral-12b's patch
+embeddings ahead of its text at full width.
 
     python3 chip_smoke.py
 
@@ -61,7 +65,15 @@ each asserting, in order:
    same gates: flash causal, bidirectional with a window and softcap, and
    causal at S = 200 with window 37, paged decode with unmapped pages,
    empty slots and idle rows; mLSTM at dh 64, chunk 16, S = 48 and S = 1
-   from a non-zero state with strongly negative log_f and large log_i);
+   from a non-zero state with strongly negative log_f and large log_i;
+   flash at hubert-xlarge's B = 4 x 512, 16 on 16 heads, hd 80,
+   bidirectional, in bf16 and f32); and the autograd Functions that
+   carry both training kernels' gradients (C12), in f32: the forward the
+   kernel, every input's gradient against autograd of the plain version
+   within 1e-4 of the leaf's largest magnitude (flash causal at 16 q on 8
+   kv heads, hd 128, and bidirectional at hd 80 with and without a
+   window and softcap; mLSTM from a non-zero state through h and the
+   final state);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
    permutations;
@@ -165,7 +177,9 @@ each asserting, in order:
    computes the same function, that call, with CUDA events (flash at
    phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512, at
    phase 11's stablelm-12b B = 2 x 512, hd 160, and at phase 17's
-   zamba2-7b B = 2 x 512, hd 112, in the row's ``shapes`` list; paged
+   zamba2-7b B = 2 x 512, hd 112, and hubert-xlarge's bidirectional
+   B = 4 x 512, hd 80, against bidirectional SDPA, in the row's
+   ``shapes`` list; paged
    decode at phase 8's step and at phase 17's, B = 4, hd 112, in its
    ``shapes`` list), and the device time of every kernel (and of the library call,
    where there is one) under ``torch.profiler``, since small calls are
@@ -237,7 +251,30 @@ each asserting, in order:
    launch per shared-attention application per whole-prompt dispatch at
    hd 112, one paged-decode launch per application per decode step; it
    prints tok/s, peak device memory and the ``oracle_generate`` match
-   count of two requests.
+   count of two requests;
+18. (also before 13) LM training: (a) reduced internlm2-1.8b, xlstm-1.3b,
+   hubert-xlarge and pixtral-12b in f32, ``loss_fn`` and its gradient on
+   the card against the CPU from the same params and batch (loss 1e-5,
+   every gradient leaf within 1e-4 of the CPU leaf's largest, so a leaf
+   the kernels left without a gradient fails), and one
+   ``make_train_step`` with two microbatches and remat (loss, Adam's
+   first moment); (b) ``launch/train.py --workload lm --full`` at
+   internlm2-1.8b (24 layers, f32 masters and Adam, bf16 compute, no
+   remat), 4 x 512 tokens, 5 steps, and (c) the same at hubert-xlarge
+   (48 layers, masked prediction over 512 frames), each with the launch
+   counters set to 0 just before and read just after: one flash launch
+   per layer per step and nothing else; each prints training tokens/s,
+   step ms, the model-FLOP share of the bf16 peak (6 x params x tokens)
+   and peak device memory;
+19. (also before 13) a small f32 pixtral engine (8 patches ahead of the
+   text, and a text-only request) on the card against the CPU: greedy
+   tokens and page tables identical; then pixtral-12b at full width in
+   bf16 (d 5120, 32 q on 8 kv heads, hd 128, depth cut to ``PLAYERS`` of
+   40 layers), 4 slots, 256 patches + 256 text tokens a request, 32
+   greedy tokens each, the launch counters set to 0 just before and read
+   just after: one flash launch per layer per (one-request) whole-prompt
+   dispatch, one paged-decode launch per layer per decode step; it
+   prints prefill and decode tok/s and peak device memory.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -271,11 +308,16 @@ N_GAE_STRIDE = 300000
 # launcher's (``launch/serve.py --full --batch 8 --prompt-len 512``)
 DECODE_POS = [574, 574, 574, 574, 190, 190, 190, 958]
 FLASH_SHAPES = [(3, 128), (4, 512), (8, 512), (1, 896)]
-# timed flash shapes (B, S, H, KH, hd): phase 8's dispatch and the
-# launcher's at internlm2-1.8b's heads, and phase 11's two 512-token
-# prompts at stablelm-12b's (hd 160, run at the padded width 192)
-FLASH_TIMED = [(3, 128, 16, 8, 128), (8, 512, 16, 8, 128),
-               (2, 512, 32, 8, 160), (2, 512, 32, 32, 112)]
+# hubert-xlarge's bidirectional attention in phases 2, 13 and 18 (c): B,
+# S, heads on heads, hd
+HUBERT_FLASH = (4, 512, 16, 16, 80)
+# timed flash shapes (B, S, H, KH, hd, causal): phase 8's dispatch and the
+# launcher's at internlm2-1.8b's heads, phase 11's two 512-token prompts
+# at stablelm-12b's (hd 160, run at the padded width 192), phase 17's at
+# zamba2-7b's (hd 112) and hubert-xlarge's bidirectional 4 x 512 at hd 80
+FLASH_TIMED = [(3, 128, 16, 8, 128, True), (8, 512, 16, 8, 128, True),
+               (2, 512, 32, 8, 160, True), (2, 512, 32, 32, 112, True),
+               (*HUBERT_FLASH, False)]
 # kernels that must reach the tensor cores: (library stem, kernel name)
 TENSOR_CORE = [("env_megakernel", "env_mega_step_kernel"),
                ("flash_attention", "flash_attention_mma_kernel"),
@@ -363,6 +405,15 @@ M_FLASH_SHAPES = [(4, 512), (4, 128)]
 ZARCH = "zamba2-7b"
 Z_SUPER = 9
 Z_PROMPTS, Z_GEN = (512, 512, 256, 256), 32
+# phase 18: LM training, (a) the small card-vs-CPU archs, (b)/(c) the
+# full-width runs (arch, batch, seq, steps); bf16 peak for the model-FLOP
+# share
+LM_SMALL = ("internlm2-1.8b", "xlstm-1.3b", "hubert-xlarge", "pixtral-12b")
+LM_RUNS = (("internlm2-1.8b", 4, 512, 5), ("hubert-xlarge", 4, 512, 5))
+# phase 19: pixtral-12b serving, depth cut as phase 11 cuts stablelm-12b
+PARCH = "pixtral-12b"
+PLAYERS = 8
+P_TEXT, P_GEN, P_SLOTS = 256, 32, 4
 Z_DECODE_POS = [543, 543, 287, 287]
 Z_FLASH_SHAPES = [(2, 512), (2, 256)]
 # mLSTM: (B, H, S, dh, chunk, zero state) of phase 10's B = 4 x 512
@@ -2547,6 +2598,294 @@ def run_zamba2(dev):
     return launches, stats
 
 
+# ------------------------------------------------- LM training (18, 19) ----
+def check_kernel_grads(gen, dev):
+    """Phase 2: the autograd Functions around the two training kernels, in
+    f32 on the card.  Each forward is the kernel (held against its plain
+    version to 1e-4, each output relative to its largest magnitude for the
+    mLSTM); the gradients of every input (flash: q, k, v at internlm2's
+    causal heads and hubert's bidirectional hd 80, the latter with a
+    window and softcap too; mLSTM: q, k, v, both gates and the initial
+    state) against autograd of the plain version on the same inputs,
+    within 1e-4 of each leaf's largest magnitude.  Returns (worst flash,
+    worst mLSTM) relative gradient error."""
+    from repro_torch.kernels import ops, ref
+
+    def compare(kernel, plain, args, weights):
+        got = [a.clone().requires_grad_() for a in args]
+        want = [a.clone().requires_grad_() for a in args]
+        outs_k, outs_p = kernel(*got), plain(*want)
+        if isinstance(outs_k, torch.Tensor):
+            outs_k, outs_p = (outs_k,), (outs_p,)
+        for o, w in zip(outs_k, outs_p):
+            o, w = o.detach(), w.detach()
+            scale = max(1.0, float(w.abs().max()))
+            assert max_err(o, w) <= 1e-4 * scale, ("forward", max_err(o, w))
+        sum(((o * w).sum() for o, w in zip(outs_k, weights)),
+            torch.zeros((), device=dev)).backward()
+        sum(((o * w).sum() for o, w in zip(outs_p, weights)),
+            torch.zeros((), device=dev)).backward()
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.grad is not None and bool(a.grad.isfinite().all()), i
+            scale = float(b.grad.abs().max())
+            assert scale > 0, ("plain gradient is zero", i)
+            rel = max_err(a.grad, b.grad) / scale
+            assert rel <= 1e-4, ("gradient", i, rel)
+            worst = max(worst, rel)
+        return worst
+
+    f32 = torch.float32
+    wf = 0.0
+    for (B, S, H, KH, hd), kw in (((2, 256, 16, 8, 128), dict(causal=True)),
+                                  ((4, 128, 16, 16, 80), dict(causal=False)),
+                                  ((2, 96, 16, 16, 80),
+                                   dict(causal=False, window=37,
+                                        softcap=5.0))):
+        args = flash_inputs(B, S, H, KH, hd, gen, dev, f32)
+        w = torch.randn(args[0].shape, generator=gen, device=dev)
+        wf = max(wf, compare(lambda *a: ops.flash_attention(*a, **kw),
+                             lambda *a: ref.attention_ref(*a, **kw), args,
+                             (w,)))
+    B, H, S, dh = 2, 4, 64, 128
+    args = mlstm_inputs(B, H, S, dh, False, gen, dev)
+    ws = [torch.randn(t.shape, generator=gen, device=dev)
+          for t in (args[0], args[5], args[6], args[7])]
+    wm = compare(lambda *a: ops.mlstm_chunkwise(*a, chunk=32),
+                 lambda *a: ref.mlstm_chunkwise_ref(*a, 32), args, ws)
+    return wf, wm
+
+
+def lm_value_and_grad(cfg, params, batch, remat=False):
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_flatten, tree_unflatten
+    flat, spec = tree_flatten(params)
+    xs = [x.detach().clone().requires_grad_() for x in flat]
+    loss = T.loss_fn(tree_unflatten(xs, spec), cfg, batch, remat=remat)
+    grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), grads
+
+
+def check_lm_small(dev):
+    """Phase 18 (a), C12's gate: reduced internlm2-1.8b, xlstm-1.3b,
+    hubert-xlarge and pixtral-12b in f32 from the same params and batch,
+    ``loss_fn`` and its gradient on the card (the attention and mLSTM
+    forwards through their kernels, the backward through the plain math)
+    against the CPU: loss within 1e-5, every gradient leaf within 1e-4 of
+    the CPU leaf's largest magnitude (a leaf left zero on the card fails);
+    then one ``make_train_step`` with ``microbatches=2`` (internlm2): loss
+    1e-5 and Adam's first moment (the clipped gradient) 1e-4 of each
+    leaf's largest.  Launch counters set to 0 before the card's runs and
+    read after.  Returns (rows, launches)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam_init
+    from repro_torch.utils import tree_leaves, tree_map
+    rows, launches = [], {k: 0 for k in TOL}
+    shape = InputShape("t", 64, 2, "train")
+
+    def on(tree, d):
+        return tree_map(lambda t: t.to(d), tree)
+
+    for arch in LM_SMALL:
+        cfg = get_reduced(arch)
+        params = T.init_model(0, cfg, "cpu")
+        batch = {k: torch.as_tensor(v)
+                 for k, v in make_batch(cfg, shape, seed=1).items()}
+        lc, gc = lm_value_and_grad(cfg, params, batch)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        lg, gg = lm_value_and_grad(cfg, on(params, dev), on(batch, dev))
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        assert abs(lg - lc) <= 1e-5, (arch, lg, lc)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(gg, gc)):
+            scale = float(b.abs().max())
+            rel = max_err(a.cpu(), b) / scale if scale > 0 else \
+                float(a.abs().max())
+            assert rel <= 1e-4, (arch, "gradient leaf", i, rel, scale)
+            worst = max(worst, rel)
+        rows.append({"arch": arch, "loss_card": lg, "loss_cpu": lc,
+                     "worst_grad_rel": worst, "leaves": len(gc)})
+    cfg = get_reduced(LM_SMALL[0])
+    tc = TrainConfig(microbatches=2, remat=True, learning_rate=1e-3)
+    step, _ = make_train_step(cfg, train_cfg=tc)
+    params = T.init_model(0, cfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in make_batch(
+        cfg, InputShape("t", 64, 4, "train"), seed=2).items()}
+    out = {}
+    for d in ("cpu", dev):
+        ops.reset_launches()
+        p, o, m = step(on(params, d), adam_init(on(params, d)),
+                       on(batch, d))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            for k, v in ops.LAUNCHES.items():
+                launches[k] += v
+        out[str(d)] = (float(m["loss"]), [t.cpu() for t in
+                                          tree_leaves(o.mu)])
+    (lc, mc), (lg, mg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5, ("train step", lg, lc)
+    worst = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(mg, mc)
+                if float(b.abs().max()) > 0)
+    assert worst <= 1e-4, ("train step mu", worst)
+    rows.append({"arch": f"{LM_SMALL[0]} make_train_step microbatches=2 "
+                         "remat", "loss_card": lg, "loss_cpu": lc,
+                 "worst_mu_rel": worst})
+    # 2 attention layers an arch (3 archs) plus, with remat, the layer
+    # recomputes of the 2 microbatches; xlstm's one mLSTM block
+    assert launches["flash_attention"] == 3 * 2 + 2 * 2 * 2, launches
+    assert launches["mlstm_chunkwise"] == 1, launches
+    return rows, launches
+
+
+def run_lm(dev, arch, batch, seq, steps):
+    """Phases 18 (b) and (c): ``launch/train.py --workload lm --full`` at
+    ``arch``'s published width and depth (random weights from seed 0, f32
+    master params and Adam state, the config's bf16 compute, no remat) for
+    ``steps`` steps of ``batch`` x ``seq`` tokens, the launch counters set
+    to 0 just before and read just after: one flash launch per layer per
+    step, nothing else.  Returns (launches, stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(["--workload", "lm", "--arch", arch, "--full",
+                      "--steps", str(steps), "--batch", str(batch),
+                      "--seq", str(seq), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in TOL}
+    want["flash_attention"] = cfg.num_layers * steps
+    assert launches == want, (launches, want)
+    losses, step_s = out["losses"], out["step_s"]
+    assert all(l == l and abs(l) < float("inf") for l in losses), losses
+    params = tree_leaves(out["params"])
+    n_params = sum(t.numel() for t in params)
+    assert all(bool(t.isfinite().all()) for t in params)
+    tokens = batch * seq
+    best = min(step_s[1:])
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    stats = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+             "seq": seq, "steps": steps, "params": n_params,
+             "wall_s": wall, "step_ms": [1e3 * s for s in step_s],
+             "tokens_per_s_median": tokens / med,
+             "tokens_per_s_best": tokens / best,
+             "model_flop_share_median": 6 * n_params * tokens / med
+             / PEAK_BF16,
+             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+             "losses": losses}
+    del out, params
+    return launches, stats
+
+
+def pixtral_requests(cfg, n_text, gen_tokens, seed, count):
+    """``count`` requests of ``cfg.num_patches`` patch embeddings (in
+    ``extras``) ahead of ``n_text`` random text tokens each."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, n_text),
+                    max_new_tokens=gen_tokens,
+                    extras={"patches": rng.standard_normal(
+                        (cfg.num_patches, cfg.frontend_feat_dim)).astype(
+                            np.float32)}) for _ in range(count)]
+
+
+def check_pixtral_small(dev):
+    """Phase 19, first: a small f32 pixtral engine (reduced: 8 patches
+    ahead of the text, d = 256, hd 64) on the card and on the CPU from the
+    same params, patch requests beside a text-only one: greedy tokens and
+    page tables identical.  Returns the card's launches."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_reduced(PARCH)
+    params = T.init_model(0, cfg, "cpu")
+    toks, tables = {}, {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, params, max_slots=3, max_seq=64, device=d)
+        reqs = pixtral_requests(cfg, 20, 10, 3, 3) + [Request(
+            tokens=np.arange(1, 13), max_new_tokens=10)]
+        ops.reset_launches()
+        done = eng.serve(reqs)
+        launches = dict(ops.LAUNCHES)
+        assert len(done) == 4 and all(len(c.tokens) == 10 for c in done)
+        toks[str(d)] = [c.tokens for c in sorted(done, key=lambda c: c.rid)]
+        tables[str(d)] = eng._table.copy()
+    assert toks["cpu"] == toks[str(dev)], "card and CPU tokens differ"
+    assert (tables["cpu"] == tables[str(dev)]).all()
+    assert launches["flash_attention"] > 0 and \
+        launches["paged_attention"] > 0, launches
+    return launches
+
+
+def run_pixtral(dev):
+    """pixtral-12b at full width in bf16 (d 5120, 32 q heads on 8 kv heads,
+    hd 128, 1024-wide patch embeddings, vocab 131,072), its depth cut to
+    PLAYERS of 40 layers, random weights from seed 0: P_SLOTS requests of
+    256 patches + P_TEXT text tokens, P_GEN greedy tokens each, through a
+    paged ``ServeEngine`` (patch requests are admitted one at a time, as in
+    the reference), the launch counters set to 0 just before and read just
+    after."""
+    from repro_torch.configs import get_config, pixtral_12b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.telemetry import ServingTelemetry
+    full = get_config(PARCH)
+    cfg = full.replace(num_layers=PLAYERS)
+    if full == pixtral_12b.FULL:
+        assert (full.d_model, full.num_heads, full.num_kv_heads,
+                full.resolved_head_dim, full.num_patches,
+                full.frontend_feat_dim, full.num_layers) == \
+            (5120, 32, 8, 128, 256, 1024, 40)
+    t0 = time.perf_counter()
+    params = T.init_model(0, cfg, dev)
+    eng = ServeEngine(cfg, params, max_slots=P_SLOTS,
+                      max_seq=cfg.num_patches + P_TEXT + P_GEN + 8,
+                      device=dev)
+    del params
+    eng.serve(pixtral_requests(cfg, 16, 3, 9, 1))
+    eng.telemetry = ServingTelemetry(eng.max_slots)
+    eng.prefill_dispatches = 0
+    setup_s = time.perf_counter() - t0
+    reqs = pixtral_requests(cfg, P_TEXT, P_GEN, 0, P_SLOTS)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    tel = eng.telemetry
+    want = {k: 0 for k in TOL}
+    want["paged_attention"] = PLAYERS * tel.total_decode_steps
+    want["flash_attention"] = PLAYERS * eng.prefill_dispatches
+    assert launches == want, (launches, want)
+    assert eng.prefill_dispatches == P_SLOTS
+    assert tel.total_decode_steps >= P_GEN - 1
+    stats = {"layers": f"{PLAYERS} of {full.num_layers}",
+             **serve_stats(eng, done, reqs, wall, setup_s, P_GEN)}
+    return launches, stats
+
+
 def paged_bound(args):
     """Bytes and operations of one paged decode call on these inputs:
     q and out, the table and positions, and each row's mapped pages that
@@ -2572,10 +2911,10 @@ def paged_bound(args):
     return bytes_, keys * 4 * H * hd
 
 
-def flash_bound(B, S, H, KH, hd, es):
+def flash_bound(B, S, H, KH, hd, es, causal=True):
     # q, k, v read once, out written once; QK^T and PV over the causal
-    # pairs, 4 * hd flops each
-    pairs = B * H * S * (S + 1) // 2
+    # (or, bidirectional, all) pairs, 4 * hd flops each
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     return es * (2 * B * S * H * hd + 2 * B * S * KH * hd), 4 * hd * pairs
 
 
@@ -2737,6 +3076,17 @@ def main() -> int:
         errs["paged_attention"] = max(errs["paged_attention"], pe[0])
         ulps["paged_attention"] = max(ulps["paged_attention"], pe[1])
         flash += fe
+    # hubert-xlarge's bidirectional attention at hd 80 (phase 18 (c))
+    hub = [check_flash(flash_inputs(*HUBERT_FLASH, gen, dev, dt), tol,
+                       causal=False)
+           for dt, tol in ((bf, 0.0), (torch.float32,
+                                       TOL["flash_attention"]))]
+    print(f"[check] hubert-xlarge shape (B, S, heads, kv heads, hd) "
+          f"{HUBERT_FLASH}, bidirectional: flash_attention bf16 "
+          f"max_abs_err={hub[0][0]:.3g} ({hub[0][1]:.3g} of one bf16 ulp of "
+          f"each element, tol 1), f32 max_abs_err={hub[1][0]:.3g} (tol "
+          f"1e-4)")
+    flash.append(hub[0])
     errs["flash_attention"] = max(e for e, _ in flash)
     ulps["flash_attention"] = max(u for _, u in flash)
     print(check_paged_in_turns(gen, dev))
@@ -2791,6 +3141,15 @@ def main() -> int:
               f"{'; '.join(res)} (tol 1e-4; 1)")
     for line in check_head_dims(gen, dev):
         print(line)
+    gf, gm = check_kernel_grads(gen, dev)
+    print(f"[check] autograd Functions (C12), f32: flash_attention forward "
+          f"the kernel, dq/dk/dv against autograd of the plain version at "
+          f"2 x 256 causal 16 q on 8 kv hd 128, 4 x 128 bidirectional 16 on "
+          f"16 hd 80, 2 x 96 bidirectional hd 80 window 37 softcap 5: worst "
+          f"{gf:.3g} of each leaf's largest; mlstm_chunkwise B=2 H=4 S=64 "
+          f"dh 128 chunk 32 from a non-zero state, gradients of q, k, v, "
+          f"both gates and (C0, n0, m0) through h and the final state: "
+          f"worst {gm:.3g} (tol 1e-4)")
     for name, sp in SPECS.items():
         e1 = check_env(name, N_RAGGED, gen, dev, True)
         e2 = check_trunk(sp.policy_dims[:-1], N_RAGGED, gen, dev)
@@ -3122,6 +3481,52 @@ def main() -> int:
           f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows), "
           f"peak {stats['peak_mem_gb']:.2f} GB | {card_line()}")
     print(f"[zamba2] phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    # 18. LM training: gradients through the kernels (C12), full width ----
+    t18 = time.perf_counter()
+    rows, la = check_lm_small(dev)
+    by_path["lm_small"] = la
+    for r in rows:
+        print(f"[lm] (a) f32 card vs CPU, reduced {json.dumps(r)}")
+    print(f"[lm] (a) loss within 1e-5, every gradient leaf within 1e-4 of "
+          f"the CPU leaf's largest; launches {la}")
+    for tag, (arch, b, sq, n) in zip(("b", "c"), LM_RUNS):
+        torch.cuda.empty_cache()
+        la, st = run_lm(dev, arch, b, sq, n)
+        by_path[f"lm_{arch.split('-')[0]}"] = la
+        print(f"[lm] ({tag}) {arch} full width and depth ({st['layers']} "
+              f"layers, {st['params']:,} params), f32 masters + Adam, bf16 "
+              f"compute, no remat, {b} x {sq} tokens, {n} steps: launches "
+              f"{la} ({st['layers']} flash a step), stats {json.dumps(st)}")
+        print(f"[lm] ({tag}) {arch}: {st['tokens_per_s_median']:,.1f} "
+              f"training tokens/s (median of steps 2-{n}; best "
+              f"{st['tokens_per_s_best']:,.1f}), step ms "
+              f"{[round(x, 2) for x in st['step_ms']]}, model-FLOP share "
+              f"{st['model_flop_share_median']:.4f} of the {PEAK_BF16:.3g} "
+              f"flop/s bf16 peak (6 x params x tokens), peak "
+              f"{st['peak_mem_gb']:.2f} GB | {card_line()}")
+    print(f"[lm] phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    # 19. pixtral-12b serving: patch embeddings ahead of the text ----------
+    t19 = time.perf_counter()
+    la = check_pixtral_small(dev)
+    print(f"[pixtral] small f32 engine ({PARCH} reduced, 8 patches ahead of "
+          f"the text, a text-only request beside) card vs CPU: greedy tokens "
+          f"and page tables identical; launches {la}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    la, stats = run_pixtral(dev)
+    by_path["serve_pixtral"] = la
+    print(f"[pixtral] {PARCH} full width bf16 (d 5120, 32 q on 8 kv heads, "
+          f"hd 128; depth cut to {PLAYERS} of 40 layers), {P_SLOTS} slots, "
+          f"256 patches + {P_TEXT} text tokens each, {P_GEN} greedy tokens: "
+          f"launches {la}, stats {json.dumps(stats)}")
+    print(f"[pixtral] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
+          f"{stats['decode_tok_s']:,.1f} tok/s "
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to "
+          f"{P_SLOTS} rows), peak {stats['peak_mem_gb']:.2f} GB | "
+          f"{card_line()}")
+    print(f"[pixtral] phase 19 took {time.perf_counter() - t19:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------
@@ -3168,14 +3573,16 @@ def main() -> int:
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_t = {}
-    for fb, fs, fh, fkh, fhd in FLASH_TIMED:
+    for fb, fs, fh, fkh, fhd, fc in FLASH_TIMED:
         fq, fk, fv = flash_inputs(fb, fs, fh, fkh, fhd, gen, dev, bf)
         ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
         flash_t[(fb, fs, fhd)] = (
-            lambda fq=fq, fk=fk, fv=fv: ops.flash_attention(fq, fk, fv),
-            lambda fq=fq, fk=fk, fv=fv: ref.attention_ref(fq, fk, fv),
-            lambda ft=ft: sdpa(*ft, is_causal=True, enable_gqa=True),
-            flash_bound(fb, fs, fh, fkh, fhd, 2), PEAK_BF16)
+            lambda fq=fq, fk=fk, fv=fv, fc=fc: ops.flash_attention(
+                fq, fk, fv, causal=fc),
+            lambda fq=fq, fk=fk, fv=fv, fc=fc: ref.attention_ref(
+                fq, fk, fv, causal=fc),
+            lambda ft=ft, fc=fc: sdpa(*ft, is_causal=fc, enable_gqa=True),
+            flash_bound(fb, fs, fh, fkh, fhd, 2, fc), PEAK_BF16)
     paged_t = {}
     for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
         paged_t[(pb, pa[0].shape[1], pa[0].shape[2])] = (
@@ -3215,11 +3622,12 @@ def main() -> int:
             for (fb, fs, fhd), (k_, p_, l_, (nb, no), *pk) in \
                     flash_t.items():
                 row["shapes"].append({"B": fb, "S": fs, "hd": fhd,
+                                      "causal": fhd != HUBERT_FLASH[-1],
                                       **timed(k_, p_, l_, nb, no, *pk),
                                       "device_ms": device_ms(k_),
                                       "library_device_ms": device_ms(l_)})
             row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in ("B", "S", "hd")})
+                        if k not in ("B", "S", "hd", "causal")})
         elif name == "paged_attention":
             # phase 8's decode step (the row's own numbers) and phase 17's
             # at hd 112, each in its own turns

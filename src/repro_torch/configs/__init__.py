@@ -1,8 +1,7 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
 A copy of ``repro/configs/`` (pure data): the 10 assigned architectures
-(public-literature pool).  The port's model code runs the dense family;
-the others raise ``NotImplementedError`` there until their slice lands.
+(public-literature pool), all of which the port's model code runs.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.envs.base import EnvState, MegaConsts, VectorEnv
 from repro_torch.envs.suite import SPECS, build_env
-from repro_torch.optim.adam import AdamState
+from repro_torch.optim.adam import AdamState, SGDState
 from repro_torch.utils import tree_map
 
 
@@ -31,6 +31,11 @@ def adam_state(st, device="cpu") -> AdamState:
     return AdamState(step=_tensor(st.step, device).to(torch.int32),
                      mu=policy_params(st.mu, device),
                      nu=policy_params(st.nu, device))
+
+
+def sgd_state(st, device="cpu") -> SGDState:
+    return SGDState(step=_tensor(st.step, device).to(torch.int32),
+                    mom=policy_params(st.mom, device))
 
 
 def env_state(st, device="cpu") -> EnvState:
@@ -77,8 +82,11 @@ def rings(bufs, device="cpu"):
 
 def model_params(tree, device="cpu", dtype=None):
     """A model's params (the reference ``init_model`` tree as numpy) as the
-    port's dict of tensors, same keys and layout; float leaves cast to
-    ``dtype`` when given."""
+    port's dict of tensors, same keys and layout (the frontends'
+    ``frontend_proj``, ``head`` and ``patch_proj`` included); float leaves
+    cast to ``dtype`` when given.  A reference ``AdamState`` or
+    ``SGDState`` over such a tree goes through :func:`adam_state` or
+    :func:`sgd_state`."""
     def leaf(x):
         t = _tensor(x, device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() \

@@ -9,8 +9,20 @@ current stream, and raises if the launch fails.  Nothing falls back.
 ``LAUNCHES`` counts kernel launches per wrapper (plain integers; a CPU call
 counts nothing), so a run can show that its main path went through the
 kernels.  ``reset_launches()`` sets every count to 0.
+
+The two kernels a training forward runs, ``flash_attention`` and
+``mlstm_chunkwise``, write their outputs through ctypes, which autograd
+cannot see.  Their CUDA launch runs inside a ``torch.autograd.Function``:
+the forward is the hand-written kernel, and the backward recomputes the
+plain math from the saved inputs and differentiates it with autograd,
+which is how the reference trains (it has no backward kernel).  Where no
+input requires grad, ``apply`` builds no graph and only the kernel runs.
 """
 from __future__ import annotations
+
+import functools
+
+import torch
 
 from repro_torch.kernels import ref
 
@@ -125,19 +137,78 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions, *,
     return out
 
 
+def _grads(ctx, fn, inputs, outs_grads):
+    """Autograd of ``fn(*inputs)`` against ``outs_grads`` (one per output,
+    None where no gradient flows), for the inputs ``ctx`` says need one;
+    None for the others."""
+    need = ctx.needs_input_grad[:len(inputs)]
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
+        outs = fn(*xs)
+        if isinstance(outs, torch.Tensor):
+            outs = (outs,)
+        pairs = [(o, g) for o, g in zip(outs, outs_grads) if g is not None]
+        wrt = [x for x, n in zip(xs, need) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wrt, [g for _, g in pairs],
+                                       allow_unused=True)) \
+            if pairs and wrt else iter(())
+    return tuple(next(got, None) if n else None for n in need)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward; ``plain``'s gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, plain):
+        from repro_torch.kernels import flash_attention as fa
+        out = fa.launch(q, k, v, causal=causal, window=window,
+                        softcap=softcap, scale=scale)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain if plain is not None else functools.partial(
+            ref.attention_ref, causal=causal, window=window,
+            softcap=softcap, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _grads(ctx, ctx.plain, ctx.saved_tensors, (g,)) + (None,) * 5
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    scale=None):
+                    scale=None, plain=None):
     """Blocked online-softmax attention with GQA and an index-based causal
     / sliding-window mask (query i and key j at positions i and j).
-    q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd).  Returns (B, Sq, H, hd)."""
+    q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd).  Returns (B, Sq, H, hd).
+    On the card its gradient is autograd of ``plain(q, k, v)``, the plain
+    route the caller attends by (``ref.attention_ref`` when None)."""
     if _on_cpu(q, "flash_attention"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, scale=scale)
-    from repro_torch.kernels import flash_attention as fa
-    out = fa.launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                    scale=scale)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                 plain)
+
+
+class _MLSTMChunkwise(torch.autograd.Function):
+    """The mLSTM kernel forward; ``ref.mlstm_chunkwise_ref``'s gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, C0, n0, m0, chunk):
+        from repro_torch.kernels import mlstm_scan
+        out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0,
+                                chunk=chunk)
+        LAUNCHES["mlstm_chunkwise"] += 1
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_i, log_f, C0, n0, m0)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return _grads(ctx, lambda *x: ref.mlstm_chunkwise_ref(*x, ctx.chunk),
+                      ctx.saved_tensors, gs) + (None,)
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
@@ -145,11 +216,9 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     attention inside chunks of ``L = min(chunk, S)`` steps (L must divide
     S) and the state carried across them.  q/k/v: (B, H, S, dh);
     log_i/log_f: (B, H, S); C0: (B, H, dh, dh) storing v (x) k; n0:
-    (B, H, dh); m0: (B, H); all f32.  Returns (h (B, H, S, dh), C, n, m)."""
+    (B, H, dh); m0: (B, H); all f32.  Returns (h (B, H, S, dh), C, n, m).
+    On the card its gradient is the plain version's."""
+    args = (q, k, v, log_i, log_f, C0, n0, m0)
     if _on_cpu(q, "mlstm_chunkwise"):
-        return ref.mlstm_chunkwise_ref(q, k, v, log_i, log_f, C0, n0, m0,
-                                       chunk)
-    from repro_torch.kernels import mlstm_scan
-    out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0, chunk=chunk)
-    LAUNCHES["mlstm_chunkwise"] += 1
-    return out
+        return ref.mlstm_chunkwise_ref(*args, chunk)
+    return _MLSTMChunkwise.apply(*args, chunk)

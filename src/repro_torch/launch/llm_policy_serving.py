@@ -2,10 +2,9 @@
 client of the ``repro_torch.serve`` continuous-batching engine
 (runnable counterpart of ``examples/llm_policy_serving.py``).
 
-The port serves the dense attention and mixture-of-experts families,
-xlstm and zamba2's Mamba2 + shared-attention stack; the vision and audio
-frontends raise ``transformer.check_supported``'s error naming ROADMAP
-item 16.
+Every family serves as in the reference: text prompts only (pixtral's
+patches are ``launch/serve.py``'s), and an encoder-only arch (hubert)
+exits with ``shape_skips``' reason.
 
     PYTHONPATH=src python -m repro_torch.launch.llm_policy_serving \\
         --arch xlstm-1.3b --device cuda
@@ -40,7 +39,6 @@ def main(argv=None):
                          shape_skips(args.arch)["decode_32k"])
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch)
-    T.check_supported(cfg)
     print(f"serving {args.arch} (reduced: {cfg.d_model}d) — "
           f"family={cfg.family}, device={device}")
     params = T.init_model(0, cfg, device)

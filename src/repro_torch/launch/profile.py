@@ -25,11 +25,22 @@ kernels that host ops inside such a range launched count in their own
 group, "sLSTM blocks": its per-step plain ops are otherwise
 indistinguishable from the rest.
 
+``--workload lm`` builds ``--arch`` at full width (f32 master params, the
+config's compute type) with Adam, runs two warm-up steps of
+``launch/steps.py::make_train_step`` (no remat) on ``--batch`` x ``--seq``
+tokens and profiles the third.  Ranges mark the backward of the two kernel
+Functions (the plain recompute and its autograd), the cross-entropy chunks
+(forward and their recompute in the backward) and the optimizer, and the
+kernels launched inside each count in their own group beside the
+attention kernel's forward, the remaining GEMMs and the rest.
+
     PYTHONPATH=src python -m repro_torch.launch.profile --env ShadowHand \
         --num-env 16384 --rollout 16
     PYTHONPATH=src python -m repro_torch.launch.profile --gmi-per-gpu 4
     PYTHONPATH=src python -m repro_torch.launch.profile --workload serve \
         --batch 8 --prompt-len 512
+    PYTHONPATH=src python -m repro_torch.launch.profile --workload lm \
+        --batch 4 --seq 512
 """
 from __future__ import annotations
 
@@ -74,29 +85,39 @@ def _profile(fn):
 
 
 SLSTM_RANGE = "slstm_apply"
+# profiler ranges and the group their kernels count in
+RANGES = {SLSTM_RANGE: "sLSTM blocks (plain ops)",
+          "kernel_backward": "kernel backward (plain recompute + autograd)",
+          "xent_chunk": "xent chunks (forward + recompute)",
+          "optimizer": "optimizer (Adam)"}
+
+
+def _mark(owner, attr, name, static=False):
+    """Run ``owner.attr`` inside the profiler range ``name``, so the
+    kernels it launches can be told apart."""
+    inner = getattr(owner, attr)
+
+    def marked(*a, **kw):
+        with torch.profiler.record_function(name):
+            return inner(*a, **kw)
+    setattr(owner, attr, staticmethod(marked) if static else marked)
 
 
 def _mark_slstm():
-    """Run ``ssm.slstm_apply`` inside a profiler range, so the kernels its
-    time loop launches can be told apart."""
     from repro_torch.models import ssm
-    inner = ssm.slstm_apply
-
-    def marked(*a, **kw):
-        with torch.profiler.record_function(SLSTM_RANGE):
-            return inner(*a, **kw)
-    ssm.slstm_apply = marked
+    _mark(ssm, "slstm_apply", SLSTM_RANGE)
 
 
 def _report(title, wall_us, prof):
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
-    # the range also leaves a device-side annotation, which is no kernel
+    # a range also leaves a device-side annotation, which is no kernel
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != SLSTM_RANGE]
-    slstm = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == SLSTM_RANGE and e.device_type == cpu]
+               and e.name not in RANGES]
+    ranges = [(e.time_range.start, e.time_range.end, RANGES[e.name])
+              for e in events if e.name in RANGES and e.device_type == cpu]
+    slstm = [(a, b) for a, b, g in ranges if g == RANGES[SLSTM_RANGE]]
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     by_group, by_name = defaultdict(float), defaultdict(float)
@@ -105,14 +126,19 @@ def _report(title, wall_us, prof):
         by_group[_group(e.name)] += dur
         by_name[e.name] += dur
     # each host op lists the kernels it launched (linked by correlation
-    # id); those of ops that start inside an sLSTM range move to its group
+    # id); those of ops that start inside a range move to its group (the
+    # innermost, where ranges nest)
     for e in events:
-        if e.device_type == cpu and any(a <= e.time_range.start < b
-                                        for a, b in slstm):
+        if e.device_type != cpu or e.name in RANGES:
+            continue
+        inside = [(b - a, g) for a, b, g in ranges
+                  if a <= e.time_range.start < b]
+        if inside:
+            group = min(inside)[1]
             for k in e.kernels:
-                if k.name != SLSTM_RANGE:
+                if k.name not in RANGES:
                     by_group[_group(k.name)] -= k.duration
-                    by_group["sLSTM blocks (plain ops)"] += k.duration
+                    by_group[group] += k.duration
     if slstm:
         print(f"{title}: {len(slstm)} sLSTM blocks, "
               f"{sum(b - a for a, b in slstm) / 1e3:.3f} ms of host time "
@@ -164,6 +190,41 @@ def _serve(args):
             *_profile(eng.step))
 
 
+def _lm(args):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch import optim
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(args.arch)
+    _mark(ops._FlashAttention, "backward", "kernel_backward", static=True)
+    _mark(ops._MLSTMChunkwise, "backward", "kernel_backward", static=True)
+    _mark(T, "_xent_chunk", "xent_chunk")
+    _mark(optim, "adam_update", "optimizer")
+    if "slstm" in (cfg.block_pattern or ()):
+        _mark_slstm()
+    params = T.init_model(args.seed, cfg, "cuda")
+    opt = optim.adam_init(params)
+    step, _ = steps.make_train_step(cfg, train_cfg=TrainConfig(remat=False))
+    shape = InputShape("lm", args.seq, args.batch, "train")
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                make_batch(cfg, shape, seed=args.seed + i).items()}
+               for i in range(3)]
+    state = [params, opt]
+    del params, opt
+    for b in batches[:2]:
+        state[:] = step(*state, b)[:2]
+
+    def one():
+        state[:] = step(*state, batches[2])[:2]
+    _report(f"{args.arch} full width, {cfg.dtype} compute, f32 masters, "
+            f"Adam, {args.batch} x {args.seq}: training step",
+            *_profile(one))
+
+
 def _gmis(args):
     from repro_torch.core.placement import plan_tcg_ex_training
     from repro_torch.envs import make_env
@@ -199,7 +260,8 @@ def main(argv=None):
     from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("ppo", "serve"), default="ppo")
+    ap.add_argument("--workload", choices=("ppo", "serve", "lm"),
+                    default="ppo")
     ap.add_argument("--env", default="ShadowHand")
     ap.add_argument("--num-env", type=int, default=16384)
     ap.add_argument("--rollout", type=int, default=16)
@@ -209,11 +271,14 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=64)
+    ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--gmi-per-gpu", type=int, default=None)
     ap.add_argument("--dispatch", choices=DISPATCH_MODES, default="streams")
     args = ap.parse_args(argv)
     if args.workload == "serve":
         return _serve(args)
+    if args.workload == "lm":
+        return _lm(args)
     if args.gmi_per_gpu is not None:
         return _gmis(args)
 

@@ -19,6 +19,9 @@ Examples:
 
 xlstm's whole-prompt prefill runs its mLSTM blocks in chunks of
 ``min(256, prompt)`` steps, which must divide the prompt length, as in the
+reference.  A vision arch (pixtral-12b) sends each request's patch
+embeddings (``make_batch``'s ``patches``) in ``Request.extras``, ahead of
+its text tokens; an encoder-only arch (hubert-xlarge) exits, as in the
 reference.
 
 ``--disagg`` serves through the disaggregated front instead
@@ -71,9 +74,14 @@ def main(argv=None):
     params = T.init_model(args.seed, cfg, device)
     shape = InputShape("serve", args.prompt_len, args.batch, "prefill")
     batch = make_batch(cfg, shape, seed=args.seed)
-    requests = [Request(tokens=batch["tokens"][i], max_new_tokens=args.gen,
-                        temperature=args.temperature, seed=args.seed + i)
-                for i in range(args.batch)]
+    requests = []
+    for i in range(args.batch):
+        extras = {"patches": batch["patches"][i]} \
+            if cfg.frontend == "vision" else None
+        requests.append(Request(tokens=batch["tokens"][i],
+                                max_new_tokens=args.gen,
+                                temperature=args.temperature,
+                                seed=args.seed + i, extras=extras))
 
     if args.disagg:
         return _serve_disagg(args, cfg, params, device, requests)
@@ -88,8 +96,10 @@ def main(argv=None):
     B = args.batch
     gen_tokens = tel.total_tokens - B          # B first tokens are prefill's
     first = next(c for c in done if c.rid == requests[0].rid)
+    prompt_tokens = len(requests[0].tokens) + (
+        cfg.num_patches if cfg.frontend == "vision" else 0)
     print(f"arch={args.arch} {'full' if args.full else 'reduced'} "
-          f"device={device} batch={B} prompt={len(requests[0].tokens)} "
+          f"device={device} batch={B} prompt={prompt_tokens} "
           f"gen={args.gen}")
     print(f"prefill: {tel.total_prefill_s*1e3:.1f} ms "
           f"({tel.total_prompt_tokens/max(tel.total_prefill_s,1e-9):,.0f} "

@@ -1,22 +1,202 @@
-"""DRL and serving factories, port of the DRL and serving half of
-``repro/launch/steps.py`` (``make_communicator``, ``make_drl_train_step``,
+"""Step builders, port of ``repro/launch/steps.py``.
+
+The LM half: ``input_specs``, ``abstract_train_state``,
+``abstract_cache`` (meta tensors in place of ``ShapeDtypeStruct``) and the
+train / prefill / serve step builders, each returning ``(fn,
+example_args)``.  The reference's builders take a mesh and jit the step
+with its shardings; here the mesh is optional (``launch/mesh.py``), its
+specs (``dist/partition.py``) ride on ``fn.specs``, and on one card they
+are all replicated, so the step is the plain eager function.
+
+The DRL and serving half (``make_communicator``, ``make_drl_train_step``,
 the async factories ``make_experience_pipeline``,
 ``make_online_controller``, ``make_async_runner``, ``make_disagg_front``
 and ``make_fleet_supervisor``), plus the multi-GMI loop that the training
-launchers share (:func:`train_gmis`).
-
-The launcher, not the algorithm module, decides which hot path a step
-runs (the fused kernels by default) and how GMIs share the card: each GMI
-of an instance grid runs its PPO iteration under its own CUDA stream, and
-the params are averaged on the default stream after every iteration.
+launchers share (:func:`train_gmis`).  The launcher, not the algorithm
+module, decides which hot path a step runs (the fused kernels by default)
+and how GMIs share the card: each GMI of an instance grid runs its PPO
+iteration under its own CUDA stream, and the params are averaged on the
+default stream after every iteration.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig
+from repro_torch.dist import partition
+from repro_torch.launch.mesh import batch_axes
+
+
+# ----------------------------------------------------------- input specs ---
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict:
+    """Meta-tensor stand-ins for every model input (no allocation)."""
+    from repro_torch.models.transformer import torch_dtype
+    B, S = shape.global_batch, shape.seq_len
+    dt, i32 = torch_dtype(cfg), torch.int32
+    if shape.mode == "decode":
+        return {"token": _meta((B,), i32), "pos": _meta((B,), i32)}
+    if cfg.frontend == "audio":
+        return {"features": _meta((B, S, cfg.frontend_feat_dim), dt),
+                "mask": _meta((B, S), torch.bool),
+                "targets": _meta((B, S), i32)}
+    if cfg.frontend == "vision":
+        Tt = S - cfg.num_patches
+        return {"tokens": _meta((B, Tt), i32), "labels": _meta((B, Tt), i32),
+                "patches": _meta((B, cfg.num_patches,
+                                  cfg.frontend_feat_dim), dt)}
+    return {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+
+
+def abstract_train_state(cfg: ModelConfig):
+    """(params, Adam state) as meta tensors: params in ``cfg.dtype``, the
+    moments f32, the step a 0-d int32."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam_init
+    params = T.init_abstract(cfg)
+    return params, adam_init(params)
+
+
+def abstract_cache(cfg: ModelConfig, shape: InputShape,
+                   window_override: Optional[int] = None,
+                   per_layer: bool = False):
+    from repro_torch.models import transformer as T
+    return T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        window_override, device="meta", per_layer=per_layer)
+
+
+def make_train_step(cfg: ModelConfig, mesh=None,
+                    shape: Optional[InputShape] = None,
+                    train_cfg: TrainConfig = TrainConfig(),
+                    lgr: str = "har", moe_spec: str = "contract"):
+    """The LM training step ``fn(params, opt_state, batch) -> (params,
+    opt_state, {"loss"})``: the gradient of ``loss_fn`` (``remat`` from
+    ``train_cfg``), accumulated over ``train_cfg.microbatches`` splits of
+    the batch in f32 (each micro-gradient divided by M, one optimizer
+    update), then ``adam_update`` with ``train_cfg``'s lr, betas, weight
+    decay and clip.  Params may be f32 masters of a bf16 ``cfg``: every
+    layer casts its weights to the activation type.  Returns ``(fn,
+    (params, opt_state, batch))`` as meta tensors (``shape`` needed for the
+    batch); ``fn.specs`` holds the mesh's param and batch specs (``lgr ==
+    "har"``: FSDP over ``data``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam_update
+    from repro_torch.utils import tree_flatten, tree_unflatten
+    params_sds, opt_sds = abstract_train_state(cfg)
+    batch_sds = input_specs(cfg, shape) if shape is not None else None
+    M = max(train_cfg.microbatches, 1)
+
+    def value_and_grad(params, batch):
+        flat, spec = tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in flat]
+        loss = T.loss_fn(tree_unflatten(leaves, spec), cfg, batch,
+                         remat=train_cfg.remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), tree_unflatten(list(grads), spec)
+
+    def train_step(params, opt_state, batch):
+        if M == 1:
+            lval, grads = value_and_grad(params, batch)
+        else:
+            # gradient accumulation: activation memory scales 1/M, one
+            # optimizer update
+            B = next(iter(batch.values())).shape[0]
+            if B % M:
+                raise ValueError(f"batch of {B} does not split into {M} "
+                                 "microbatches")
+            grads = None
+            lval = torch.zeros((), device=opt_state.step.device)
+            for i in range(M):
+                mb = {k: v[i * (B // M):(i + 1) * (B // M)]
+                      for k, v in batch.items()}
+                lv, g = value_and_grad(params, mb)
+                g = [x.float() / M for x in tree_flatten(g)[0]]
+                grads = g if grads is None else \
+                    [a + b for a, b in zip(grads, g)]
+                lval = lval + lv / M
+            grads = tree_unflatten(grads, tree_flatten(params)[1])
+        params, opt_state = adam_update(
+            grads, opt_state, params, lr=train_cfg.learning_rate,
+            beta1=train_cfg.beta1, beta2=train_cfg.beta2,
+            weight_decay=train_cfg.weight_decay,
+            grad_clip=train_cfg.grad_clip)
+        return params, opt_state, {"loss": lval.float()}
+
+    train_step.specs = None if mesh is None else {
+        "params": partition.param_specs(params_sds, mesh, fsdp=lgr == "har",
+                                        moe_spec=moe_spec),
+        "batch": partition.batch_specs(batch_sds or {}, mesh,
+                                       batch_axes=batch_axes(mesh))}
+    return train_step, (params_sds, opt_sds, batch_sds)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None,
+                      shape: Optional[InputShape] = None,
+                      window_override: Optional[int] = None):
+    """``fn(params, batch) -> (last-position logits f32, caches)`` for
+    prompts of ``shape.seq_len``.  Returns ``(fn, (params, batch))``."""
+    from repro_torch.models import transformer as T
+    params_sds = T.init_abstract(cfg)
+    batch_sds = input_specs(cfg, shape)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, caches = T.prefill(params, cfg, batch, shape.seq_len,
+                                   window_override)
+        return logits.float(), caches
+
+    prefill_step.specs = None if mesh is None else {
+        "params": partition.param_specs(params_sds, mesh, fsdp=False),
+        "batch": partition.batch_specs(batch_sds, mesh,
+                                       batch_axes=batch_axes(mesh)),
+        "cache": partition.cache_specs(
+            abstract_cache(cfg, shape, window_override), mesh,
+            batch_shardable=shape.global_batch > 1)}
+    return prefill_step, (params_sds, batch_sds)
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None,
+                    shape: Optional[InputShape] = None,
+                    window_override: Optional[int] = None,
+                    cache_layout: str = "heads", params_fsdp: bool = False,
+                    per_layer_cache: bool = False):
+    """One decode step over a ``shape.seq_len``-deep cache: ``fn(params,
+    caches, token, pos) -> (logits f32, caches)``, caches written in
+    place.  ``per_layer_cache`` (local/global archs only) takes a list of
+    per-layer caches, each sized to its own window.  Returns ``(fn,
+    (params, caches, token, pos))``."""
+    from repro_torch.models import transformer as T
+    per_layer_cache = per_layer_cache and cfg.local_global \
+        and not cfg.block_pattern
+    params_sds = T.init_abstract(cfg)
+    cache_sds = abstract_cache(cfg, shape, window_override,
+                               per_layer=per_layer_cache)
+    tok_sds = input_specs(cfg, shape)
+
+    @torch.no_grad()
+    def serve_step(params, caches, token, pos):
+        logits, caches = T.decode_step(params, cfg, token, pos, caches,
+                                       window_override)
+        return logits.float(), caches
+
+    serve_step.specs = None if mesh is None else {
+        "params": partition.param_specs(params_sds, mesh, fsdp=params_fsdp),
+        "cache": partition.cache_specs(
+            cache_sds, mesh, batch_shardable=shape.global_batch > 1,
+            layout=cache_layout),
+        "batch": partition.batch_specs(tok_sds, mesh,
+                                       batch_axes=batch_axes(mesh))}
+    return serve_step, (params_sds, cache_sds, tok_sds["token"],
+                        tok_sds["pos"])
+
 
 # how the host issues the GMIs' iterations: one thread in turn on their
 # own streams, or one thread in turn on the default stream (the

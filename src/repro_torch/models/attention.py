@@ -7,7 +7,8 @@ Execution paths:
     positions are ``arange(S)`` in every row, as ``_embed_inputs`` builds
     them for every whole-prompt prefill and every no-cache forward.  On a
     CUDA tensor that is the hand-written flash kernel
-    (``csrc/flash_attention.cu``);
+    (``csrc/flash_attention.cu``), whose gradient is the reference's
+    plain route (direct, or blocked past ``chunked_threshold``);
   * a paged decode step (S == 1) runs ``ops.paged_attention``, the paged
     gather-decode kernel on a CUDA tensor (``csrc/paged_decode.cu``);
   * everything else (ring-cache decode, a paged prefill chunk whose
@@ -196,6 +197,12 @@ def _chunked_attention(q, k, v, qpos, kpos, causal, window, cap, scale,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _route(Sq: int, Skv: int, chunked_threshold: int):
+    """The reference's plain route: blocked past ``chunked_threshold``."""
+    return _chunked_attention if max(Sq, Skv) > chunked_threshold \
+        and Sq > 1 else _direct_attention
+
+
 # --------------------------------------------------------------------------
 def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
               positions, causal: bool = True, window: Optional[int] = None,
@@ -261,16 +268,17 @@ def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
             cache.v.index_put_((bidx, slots), v[:, -n:].to(cache.v.dtype))
             cache.slot_pos.index_put_((bidx, slots), p_tail.to(torch.int32))
         from repro_torch.kernels import ops
+        route = _route(S, S, chunked_threshold)
+
+        def plain(q, k, v):
+            pos = torch.arange(S, dtype=torch.int32, device=q.device)[None]
+            return route(q, k, v, pos, pos, causal, window, attn_cap, scale)
+
         o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                softcap=attn_cap, scale=scale)
+                                softcap=attn_cap, scale=scale, plain=plain)
         return linear(params["wo"], o.reshape(B, S, -1)), cache
 
-    Skv = k_all.shape[1]
-    if max(S, Skv) > chunked_threshold and S > 1:
-        out = _chunked_attention(q, k_all, v_all, positions, kpos,
-                                 causal, window, attn_cap, scale)
-    else:
-        out = _direct_attention(q, k_all, v_all, positions, kpos,
-                                causal, window, attn_cap, scale)
+    out = _route(S, k_all.shape[1], chunked_threshold)(
+        q, k_all, v_all, positions, kpos, causal, window, attn_cap, scale)
     out = linear(params["wo"], out.reshape(B, S, num_heads * head_dim))
     return out, cache

@@ -22,16 +22,24 @@ the page pool by the serving engine.  A dense stack's cache is one
 stacked ``KVCache`` or ``PagedKVCache``.  :func:`cache_nodes` lists
 either form's nodes.
 
-Runs the dense and mixture-of-experts families, xlstm's mLSTM/sLSTM stack
-and zamba2's Mamba2 + shared-attention stack.  The vision/audio frontends
-raise ``NotImplementedError``: they are ROADMAP queue A item 16's last
-family.  ``loss_fn`` waits for the LM training slice (item 18).
+Runs every family of ``configs.ARCHS``: the dense and mixture-of-experts
+stacks, xlstm's mLSTM/sLSTM stack, zamba2's Mamba2 + shared-attention
+stack, and the two frontend stubs, as in the reference: audio (hubert)
+feeds precomputed frame features through ``frontend_proj`` into an
+encoder-only stack read out by ``head``; vision (pixtral) projects patch
+embeddings with ``patch_proj`` and puts them ahead of the text tokens.
+:func:`loss_fn` is the reference's training loss (causal LM, masked
+prediction, text-only next token for the VLM) over
+:func:`_chunked_xent`; ``remat`` recomputes each layer (or super-block)
+in the backward with ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
@@ -51,14 +59,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP queue A item 16)")
 
 
 # ======================================================================
@@ -113,14 +113,20 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
     the card unless ``device`` says otherwise.  The draws differ from the
     reference's (``jax.random`` is not reproducible here): parity tests
     carry the reference's params across with ``interop.model_params``."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
-    params: Dict[str, Any] = {
-        "final_norm": init_rmsnorm(cfg.d_model, device),
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model)}
-    if not cfg.tie_embeddings:
-        params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+    params: Dict[str, Any] = {"final_norm": init_rmsnorm(cfg.d_model, device)}
+    if cfg.frontend == "audio":
+        params["frontend_proj"] = init_linear(gen, cfg.frontend_feat_dim,
+                                              cfg.d_model)
+        params["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+    else:
+        params["embed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model)
+        if not cfg.tie_embeddings:
+            params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+    if cfg.frontend == "vision":
+        params["patch_proj"] = init_linear(gen, cfg.frontend_feat_dim,
+                                           cfg.d_model)
     if cfg.block_pattern:
         params["super"] = {
             f"{kind}_{i}": _init_stacked(lambda: _init_block(gen, kind, cfg),
@@ -133,6 +139,19 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
         params["layers"] = _init_stacked(lambda: _init_attn_layer(gen, cfg),
                                          cfg.num_layers)
     return params
+
+
+def init_abstract(cfg: ModelConfig) -> Dict[str, Any]:
+    """The param tree on ``torch.device("meta")`` in ``cfg.dtype`` (int
+    leaves keep theirs): shapes without allocation, traced under a
+    ``FakeTensorMode`` so even qwen2-72b costs nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        shapes = init_model(0, cfg, "cpu")
+    dt = torch_dtype(cfg)
+    return tree_map(lambda t: torch.empty(
+        t.shape, dtype=dt if t.is_floating_point() else t.dtype,
+        device="meta"), shapes)
 
 
 # leaves the reference reads in f32 whatever the activation type: the
@@ -209,12 +228,12 @@ def _patterned_cache(cfg: ModelConfig, batch: int, max_seq: int, window,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                window_override: Optional[int] = None, dtype=None,
-               device="cpu"):
+               device="cpu", per_layer: bool = False):
     """Stacked per-layer dense caches for decode (leading dim = layers), or
-    a patterned stack's dict of recurrent states.  The reference's
-    ``per_layer`` list of caches, each sized to its own window, serves
-    gemma2's dry runs and is not ported."""
-    check_supported(cfg)
+    a patterned stack's dict of recurrent states.  ``per_layer=True``
+    (local/global archs) gives a list of per-layer caches, each sized to
+    its own window: gemma2's local layers then hold a ring of their
+    window instead of the full context."""
     dt = dtype or torch_dtype(cfg)
     if cfg.block_pattern:
         return _patterned_cache(cfg, batch, max_seq,
@@ -227,6 +246,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                           device)
 
     windows = layer_windows(cfg, window_override)
+    if per_layer:
+        return [attn_cache(None if w == BIG_WINDOW else w) for w in windows]
     # uniform, or mixed local/global: every cache sized to the largest
     # window; local layers still mask to their own
     maxw = max(windows)
@@ -245,7 +266,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     states are fixed-size per slot and stay batched exactly as in
     :func:`init_cache`; xlstm has no attention node, so its tree holds no
     pool at all."""
-    check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     if cfg.block_pattern:
         return _patterned_cache(cfg, batch, max_seq, None, dt, device,
@@ -301,10 +321,16 @@ def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
     return x + mlp(lp["mlp"], h, cfg.act), cache, None
 
 
-def _layer(tree, i: int):
+def _unstack(tree, n: int):
+    """The ``n`` per-layer views of a stacked tree (leading dim ``n``), by
+    one ``unbind`` a leaf.  Its backward stacks a leaf's layer gradients
+    once; indexing layer by layer would instead add a zero-padded,
+    full-size gradient of the stacked leaf for every layer (quadratic in
+    depth)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _freeze_idle(old, new, positions):
@@ -353,53 +379,79 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
     return y
 
 
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward (the reference's
+    ``jax.checkpoint`` of its scan body) when ``remat`` is set and grad is
+    enabled."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None,
-                     window_override: Optional[int] = None, page_table=None):
+                     window_override: Optional[int] = None, page_table=None,
+                     remat: bool = False):
     """The reference's scan over super-blocks with the pattern unrolled
     inside, as a Python loop; each block's state or cache slice is written
     back in place.  Attention positions (zamba2's ``attn_shared``) apply
     ``params["shared_attn"]`` with their own cache, window and the page
-    table.  Returns (x, caches, aux)."""
+    table.  ``remat`` recomputes each super-block in the backward.
+    Returns (x, caches, aux)."""
     w_attn = window_override or cfg.sliding_window or BIG_WINDOW
-    aux = torch.zeros((), device=x.device)
-    for s in range(cfg.num_super):
+    sup = {k: _unstack(v, cfg.num_super) for k, v in params["super"].items()}
+
+    def super_block(s, x, aux):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{kind}_{i}"
             cache = None if caches is None else type(caches[key])(
                 *[t[s] for t in caches[key]])
             if kind in ("attn", "attn_shared"):
                 lp = params["shared_attn"] if kind == "attn_shared" \
-                    else _layer(params["super"][key], s)
+                    else sup[key][s]
                 x, _, a = _attn_block(lp, x, cfg, positions, w_attn, cache,
                                       page_table)
                 if a is not None:
                     aux = aux + a
             else:
-                x = _apply_kind(kind, _layer(params["super"][key], s), x,
-                                cfg, positions, cache)
+                x = _apply_kind(kind, sup[key][s], x, cfg, positions,
+                                cache)
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
+    for s in range(cfg.num_super):
+        x, aux = _remat(super_block, remat and caches is None, s, x, aux)
     return x, caches, aux
 
 
 def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
-                window_override: Optional[int] = None, page_table=None):
+                window_override: Optional[int] = None, page_table=None,
+                remat: bool = False):
     """Run the whole layer stack; returns (x, caches, aux), aux the MoE
     load-balance loss summed over layers (f32, 0 without experts).  A
     stacked cache (leading dim = layers) is written in place through
-    per-layer views.  ``page_table`` (B, M) addresses every paged layer:
-    they share one physical page-id space."""
-    check_supported(cfg)
+    per-layer views; a list of per-layer caches (``init_cache(...,
+    per_layer=True)``) layer by layer.  ``page_table`` (B, M) addresses
+    every paged layer: they share one physical page-id space.  ``remat``
+    (no caches) recomputes each layer in the backward."""
     if cfg.block_pattern:
         return _apply_patterned(params, cfg, x, positions, caches,
-                                window_override, page_table)
+                                window_override, page_table, remat)
     windows = layer_windows(cfg, window_override)
+    layers = _unstack(params["layers"], cfg.num_layers)
+
+    def layer(i, x, aux):
+        if isinstance(caches, list):
+            ci = caches[i]
+        else:
+            ci = None if caches is None else type(caches)(
+                *[t[i] for t in caches])
+        x, _, a = _attn_block(layers[i], x, cfg, positions, windows[i], ci,
+                              page_table)
+        return x, aux if a is None else aux + a
+
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
-        ci = None if caches is None else type(caches)(*[t[i]
-                                                         for t in caches])
-        x, _, a = _attn_block(_layer(params["layers"], i), x, cfg, positions,
-                              windows[i], ci, page_table)
-        if a is not None:
-            aux = aux + a
+        x, aux = _remat(layer, remat and caches is None, i, x, aux)
     return x, caches, aux
 
 
@@ -407,42 +459,128 @@ def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
 # model entry points
 # ======================================================================
 def _embed_inputs(params, cfg: ModelConfig, batch):
-    """batch dict -> (x (B,S,D), positions (S,)); text only."""
-    check_supported(cfg)
+    """batch dict -> (x (B,S,D), positions (S,), text_mask (S,) bool or
+    None).  Audio: features through ``frontend_proj``; vision with
+    ``patches``: the projected patches ahead of the text embeddings, with
+    the mask of the text positions."""
+    if cfg.frontend == "audio":
+        x = linear(params["frontend_proj"], batch["features"])
+        return x, _arange(x), None
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = linear(params["patch_proj"], batch["patches"])
+        te = embed(params["embed"], batch["tokens"])
+        x = torch.cat([pe.to(te.dtype), te], dim=1)
+        P, Tt = pe.shape[1], te.shape[1]
+        text_mask = torch.cat([
+            torch.zeros((P,), dtype=torch.bool, device=x.device),
+            torch.ones((Tt,), dtype=torch.bool, device=x.device)])
+        return x, _arange(x), text_mask
     x = embed(params["embed"], batch["tokens"])
-    return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return x, _arange(x), None
+
+
+def _arange(x):
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
 def _logits(params, cfg: ModelConfig, h):
-    if cfg.tie_embeddings:
+    if cfg.frontend == "audio":
+        lg = linear(params["head"], h)
+    elif cfg.tie_embeddings:
         lg = unembed(params["embed"], h)
     else:
         lg = linear(params["unembed"], h)
     return softcap(lg, cfg.final_softcap)
 
 
-def forward(params, cfg: ModelConfig, batch, *,
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
             window_override: Optional[int] = None):
     """Full forward pass -> (logits (B,S,V), aux), aux the MoE load-balance
     loss summed over layers (0 for the other families)."""
-    x, positions = _embed_inputs(params, cfg, batch)
+    x, positions, _ = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
     h, _, aux = apply_stack(params, cfg, x, positions,
-                            window_override=window_override)
+                            window_override=window_override, remat=remat)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h), aux
 
 
-def prefill(params, cfg: ModelConfig, batch, max_seq: int,
+def _xent_chunk(params, cfg: ModelConfig, h, labels, mask):
+    """Summed masked NLL of one chunk, in f32."""
+    logits = _logits(params, cfg, h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - picked) * mask)
+
+
+def _chunked_xent(h, cfg: ModelConfig, params, labels, mask,
+                  chunk: int = 512):
+    """Cross-entropy over sequence chunks of ``min(chunk, S)`` positions
+    (the sequence padded to a whole number of chunks, padding masked), so
+    no (B, S, V) logits tensor exists at once: with grad enabled each
+    chunk's logits are recomputed in the backward rather than kept."""
+    B, S, D = h.shape
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+    hp = F.pad(h, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad))
+    mp = F.pad(mask, (0, pad))
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        tot = tot + _remat(lambda hc, lc, mc: _xent_chunk(params, cfg, hc,
+                                                          lc, mc),
+                           True, hp[:, sl], lp[:, sl], mp[:, sl])
+        cnt = cnt + torch.sum(mp[:, sl])
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
             window_override: Optional[int] = None):
+    """Training loss (causal LM / masked prediction / text-only VLM), plus
+    the MoE load-balance loss."""
+    x, positions, text_mask = _embed_inputs(params, cfg, batch)
+    x = x.to(torch_dtype(cfg))
+    h, _, aux = apply_stack(params, cfg, x, positions,
+                            window_override=window_override, remat=remat)
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    B, S, _ = h.shape
+
+    if cfg.frontend == "audio":
+        loss = _chunked_xent(h, cfg, params, batch["targets"],
+                             batch["mask"].float())
+        return loss + aux
+
+    if cfg.frontend == "vision" and "patches" in batch:
+        T = batch["tokens"].shape[1]
+        labels = F.pad(batch["labels"], (S - T, 0))
+        mask = text_mask[None].expand(B, S).float()
+        # next-token: positions predicting text tokens only
+        loss = _chunked_xent(h[:, :-1], cfg, params, labels[:, 1:],
+                             mask[:, 1:])
+        return loss + aux
+
+    labels = batch["labels"]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    loss = _chunked_xent(h[:, :-1], cfg, params, labels[:, 1:], mask[:, 1:])
+    return loss + aux
+
+
+def prefill(params, cfg: ModelConfig, batch, max_seq: int,
+            window_override: Optional[int] = None,
+            per_layer_cache: bool = False):
     """Prefill -> (last-position logits, filled caches).  Positions are
     ``arange(S)`` by construction, so every layer's attention runs the
     flash kernel on a CUDA tensor, and every mLSTM block one launch of the
-    mLSTM kernel from a zero state."""
-    x, positions = _embed_inputs(params, cfg, batch)
+    mLSTM kernel from a zero state.  ``per_layer_cache`` fills a list of
+    per-layer caches (local/global archs)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
     caches = init_cache(cfg, x.shape[0], max_seq, window_override,
-                        torch_dtype(cfg), device=x.device)
+                        torch_dtype(cfg), device=x.device,
+                        per_layer=per_layer_cache)
     h, caches, _ = apply_stack(params, cfg, x, positions, caches=caches,
                                window_override=window_override)
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
@@ -452,8 +590,12 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
 def decode_step(params, cfg: ModelConfig, token, pos, caches,
                 window_override: Optional[int] = None, page_table=None):
     """One decode step.  token: (B,) int32; pos: (B,) int32 absolute.
-    ``page_table`` (B, M) is required when the caches are paged.
-    Returns (logits (B,V), caches)."""
+    ``page_table`` (B, M) is required when the caches are paged.  The
+    stack runs layer by layer, so a list of per-layer caches (the
+    reference's ``unroll=True`` layout) is taken as it comes.  Returns
+    (logits (B,V), caches)."""
+    if cfg.frontend == "audio":
+        raise ValueError("encoder-only model has no decode step")
     x = embed(params["embed"], token[:, None]).to(torch_dtype(cfg))
     h, caches, _ = apply_stack(params, cfg, x, pos[:, None], caches=caches,
                                window_override=window_override,

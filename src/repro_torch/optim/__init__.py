@@ -1,1 +1,3 @@
-from repro_torch.optim.adam import AdamState, adam_init, adam_update  # noqa: F401
+from repro_torch.optim.adam import (AdamState, SGDState, adam_init,  # noqa: F401
+                                    adam_update, cosine_warmup, sgd_init,
+                                    sgd_update)

@@ -1,7 +1,8 @@
-"""Adam with global-norm clipping over dicts of tensors (port of
-``repro/optim/adam.py``)."""
+"""Adam with global-norm clipping, momentum SGD and the cosine warmup
+schedule over dicts of tensors (port of ``repro/optim/adam.py``)."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -59,3 +60,48 @@ def adam_update(grads, state: AdamState, params, *, lr, beta1: float = 0.9,
     new_m = tree_unflatten([o[1] for o in out], spec)
     new_v = tree_unflatten([o[2] for o in out], spec)
     return new_p, AdamState(step, new_m, new_v)
+
+
+class SGDState(NamedTuple):
+    step: torch.Tensor     # 0-d int32
+    mom: object
+
+
+def sgd_init(params) -> SGDState:
+    leaf = next(iter(tree_flatten(params)[0]))
+    return SGDState(torch.zeros((), dtype=torch.int32, device=leaf.device),
+                    tree_map(lambda x: torch.zeros_like(
+                        x, dtype=torch.float32), params))
+
+
+@torch.no_grad()
+def sgd_update(grads, state: SGDState, params, *, lr, momentum: float = 0.9):
+    """Heavy-ball SGD: ``m = momentum * m + g``, ``p -= lr * m`` in f32.
+    ``lr`` may be a scalar or a callable of the step.  Returns
+    (new_params, new_state)."""
+    step = state.step + 1
+    lr_t = lr(step) if callable(lr) else lr
+
+    def upd(g, m, p):
+        m = momentum * m + g.float()
+        return (p.float() - lr_t * m).to(p.dtype), m
+
+    flat_p, spec = tree_flatten(params)
+    out = [upd(g, m, p) for g, m, p in zip(
+        tree_flatten(grads)[0], tree_flatten(state.mom)[0], flat_p)]
+    return (tree_unflatten([o[0] for o in out], spec),
+            SGDState(step, tree_unflatten([o[1] for o in out], spec)))
+
+
+def cosine_warmup(base_lr: float, warmup: int, total: int,
+                  floor: float = 0.1):
+    """Linear warmup over ``warmup`` steps, then a cosine from ``base_lr``
+    down to ``floor * base_lr`` at ``total``: a callable of the step (a
+    tensor), as ``adam_update`` and ``sgd_update`` take it."""
+    def sched(step):
+        s = step.float()
+        warm = s / max(warmup, 1)
+        prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0, 1)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return base_lr * torch.where(s < warmup, warm, cos)
+    return sched

@@ -123,7 +123,6 @@ class PrefillEngine:
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name}: encoder-only model has no "
                              "decode step — nothing to prefill for")
-        T.check_supported(cfg)
         self.cfg = cfg
         self.max_seq = int(max_seq)
         self.window_override = window_override

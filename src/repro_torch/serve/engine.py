@@ -60,8 +60,9 @@ What changes in the port:
   ``serve/disagg.py``) is spliced on the engine's stream after that
   stream has waited for the payload's pack (``core/channels.py::
   CacheChannel``), and its buffers are marked as used there.
-* The vision and audio frontends are not ported yet
-  (``transformer.check_supported``).
+* A vision request's patches (``Request.extras["patches"]``) go to its
+  whole-prompt prefill, ahead of its text tokens; such requests are
+  admitted one at a time and share no prefix, as in the reference.
 """
 from __future__ import annotations
 
@@ -266,7 +267,6 @@ class ServeEngine:
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name}: encoder-only model has no decode "
                              "step — nothing to serve")
-        T.check_supported(cfg)
         self.cfg = cfg
         self.gmi = gmi
         self.device = resolve_device(gmi.device if gmi is not None

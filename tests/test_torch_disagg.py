@@ -617,9 +617,10 @@ def test_cache_channel_streams_are_skipped_on_the_cpu():
 def test_serving_launchers_run_without_jax():
     """``launch/serve.py --disagg`` and the two serving counterparts on the
     CPU in a process where importing JAX fails (``llm_policy_serving``
-    over the dense, MoE and zamba2 families); all default to the card and
-    refuse to run without one, and the frontend family the port does not
-    serve yet raises item 16's error."""
+    over the dense, MoE and zamba2 families, and pixtral-12b text only, as
+    the reference's example serves it); all default to the card and
+    refuse to run without one, and hubert-xlarge, encoder-only, exits
+    with ``shape_skips``' reason."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "from repro_torch.launch import serve, submesh_serving, "
@@ -637,17 +638,17 @@ def test_serving_launchers_run_without_jax():
         "router = submesh_serving.main(['--device', 'cpu'])\n"
         "assert sum(s.requests for s in router.per_gmi_stats()) == 20\n"
         "for arch in ('internlm2-1.8b', 'granite-moe-1b-a400m', "
-        "'zamba2-7b'):\n"
+        "'zamba2-7b', 'pixtral-12b'):\n"
         "    done = llm_policy_serving.main(['--device', 'cpu', '--arch', "
         "arch, '--batch', '2', '--gen', '4'])\n"
         "    assert len(done) == 2 and all(len(c.tokens) == 4 "
         "for c in done)\n"
         "try:\n"
         "    llm_policy_serving.main(['--device', 'cpu', '--arch', "
-        "'pixtral-12b'])\n"
-        "    raise SystemExit('an unported family served')\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'item 16' in str(e), e\n"
+        "'hubert-xlarge'])\n"
+        "    raise AssertionError('an encoder-only arch served')\n"
+        "except SystemExit as e:\n"
+        "    assert 'encoder-only' in str(e), e\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('NO_JAX_OK')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

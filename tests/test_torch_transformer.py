@@ -62,8 +62,21 @@ def test_configs_are_copies(arch):
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_model(0, get_reduced(arch), device="cpu")
+    """The two frontend families, which raised before their port: built
+    from the reference's weights, the reduced config's ``forward`` on
+    ``make_batch``'s inputs (pixtral's patches ahead of its text,
+    hubert's frame features) matches the reference's logits to 1e-4."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch
+    jcfg, cfg = jget_reduced(arch), get_reduced(arch)
+    jp = JT.init_model(jax.random.key(8), jcfg)
+    tp = interop.model_params(jax.tree.map(np.asarray, jp))
+    batch = make_batch(cfg, InputShape("t", 20, 2, "prefill"), seed=8)
+    jl, _ = JT.forward(jp, jcfg, {k: jnp.asarray(v) for k, v in
+                                  batch.items()})
+    tl, _ = TT.forward(tp, cfg, {k: torch.as_tensor(v) for k, v in
+                                 batch.items()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "granite-moe-1b-a400m",
