@@ -274,7 +274,19 @@ each asserting, in order:
    greedy tokens each, the launch counters set to 0 just before and read
    just after: one flash launch per layer per (one-request) whole-prompt
    dispatch, one paged-decode launch per layer per decode step; it
-   prints prefill and decode tok/s and peak device memory.
+   prints prefill and decode tok/s and peak device memory;
+20. (also before 13) the dry run against the card, at models earlier
+   phases hold: (a) the tracer of ``launch/dryrun.py``
+   (``launch/hlo_analysis.trace``, fake CUDA tensors) over phase 18
+   (b)'s internlm2-1.8b train step, f32 masters and bf16 compute: its
+   ``dot_flops`` equal, as integers, to the op counter's over one real
+   step, and its ``kernel_flops`` to that step's flash launches times
+   ``kernels/cost.py``'s per-call count (``FlopCounterMode``'s count
+   printed beside); (b) the trace's ``mem_per_device_bytes`` beside
+   ``torch.cuda.max_memory_allocated()`` of that step and of phase 8's
+   paged decode step, each measured from a reset, within ``MEM_TOL``;
+   (c) ``python -m repro_torch.analysis --strict`` in a subprocess
+   with ``jax`` blocked, exit code 0.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -353,12 +365,6 @@ FLEET_ROUNDS = 6
 FLEET_COLLECTS = 4 + 0 + 2 + 2 + 4 + 4
 FLEET_N = N_MAIN // 4
 FLEET_TIMED = 5
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
-PEAK_F32 = 67e12         # H100 SXM fp32 outside the tensor cores, flop/s
-PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense, flop/s
-PEAK_TF32 = 495e12       # H100 SXM TF32 tensor cores, dense, flop/s
-# f32 accuracy on the TF32 tensor cores takes three passes (3xTF32)
-PEAK_3XTF32 = PEAK_TF32 / 3
 ARCH = "internlm2-1.8b"
 # bf16 attention kernels: each output element within one bf16 ulp of its
 # own magnitude, plus 2^-14 (``repro_torch.utils.bf16_ulps``); f32 ones 1e-4
@@ -425,23 +431,25 @@ TOL = {"env_mega_step": 1e-4, "gae_norm": 1e-4, "policy_mlp": 1e-4,
        "nstep_returns": 1e-5, "pack_channels": 0.0,
        "paged_attention": 1e-4, "flash_attention": 1e-4,
        "mlstm_chunkwise": 1e-4}
+# phase 20 (b): predicted and measured peak bytes of a step agree within
+MEM_TOL = 0.10
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
-                      "src/repro/kernels/env_megakernel.py:179"),
+                      "src/repro/kernels/env_megakernel.py:226"),
     "gae_norm": ("src/repro_torch/csrc/gae_scan.cu",
-                 "src/repro/kernels/gae_scan.py:57"),
+                 "src/repro/kernels/gae_scan.py:71"),
     "policy_mlp": ("src/repro_torch/csrc/fused_policy_mlp.cu",
-                   "src/repro/kernels/fused_policy_mlp.py:37"),
+                   "src/repro/kernels/fused_policy_mlp.py:57"),
     "nstep_returns": ("src/repro_torch/csrc/gae_scan.cu",
-                      "src/repro/kernels/gae_scan.py:98"),
+                      "src/repro/kernels/gae_scan.py:114"),
     "pack_channels": ("src/repro_torch/csrc/channel_pack.cu",
-                      "src/repro/kernels/channel_pack.py:103"),
+                      "src/repro/kernels/channel_pack.py:126"),
     "paged_attention": ("src/repro_torch/csrc/paged_decode.cu",
-                        "src/repro/kernels/paged_decode.py:77"),
+                        "src/repro/kernels/paged_decode.py:122"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:80"),
+                        "src/repro/kernels/flash_attention.py:107"),
     "mlstm_chunkwise": ("src/repro_torch/csrc/mlstm_chunkwise.cu",
-                        "src/repro/kernels/mlstm_scan.py:74"),
+                        "src/repro/kernels/mlstm_scan.py:90"),
 }
 
 
@@ -1578,19 +1586,6 @@ def check_mlstm(args, chunk):
         assert e <= TOL["mlstm_chunkwise"] * scale, (nm, e, scale)
         err = max(err, e)
     return err
-
-
-def mlstm_bound(B, H, S, dh, L):
-    # q, k, v, h (B,H,S,dh), the gates (B,H,S), the state in and out;
-    # per (b, h, chunk) what the function needs: the causal halves of
-    # q k^T and scores v (L^2 dh each; the denominator's in-chunk part is
-    # the score rows' sums), 2 L dh^2 each for q C^T and the C update,
-    # and 2 L dh each for q . n and the n update
-    bytes_ = 4 * (4 * B * H * S * dh + 2 * B * H * S
-                  + 2 * (B * H * dh * dh + B * H * dh + B * H))
-    ops_ = B * H * (S // L) * (2 * L * L * dh + 4 * L * dh * dh
-                               + 4 * L * dh)
-    return bytes_, ops_
 
 
 # ------------------------------------------------------------ serving ----
@@ -2754,7 +2749,7 @@ def run_lm(dev, arch, batch, seq, steps):
     to 0 just before and read just after: one flash launch per layer per
     step, nothing else.  Returns (launches, stats)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cost, ops
     from repro_torch.launch import train
     from repro_torch.utils import tree_leaves
     cfg = get_config(arch)
@@ -2785,11 +2780,150 @@ def run_lm(dev, arch, batch, seq, steps):
              "tokens_per_s_median": tokens / med,
              "tokens_per_s_best": tokens / best,
              "model_flop_share_median": 6 * n_params * tokens / med
-             / PEAK_BF16,
+             / cost.PEAK_BF16,
              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
              "losses": losses}
+    if arch == ARCH:
+        # phase 20 (a), (b) on the model just trained: no second model
+        stats["phase20"] = check_step_counts(dev, cfg, out["params"],
+                                             out["opt"], batch, seq, 3e-4)
     del out, params
     return launches, stats
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of a tree's tensors."""
+    from repro_torch.utils import tree_leaves
+    seen = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def step_memory(dev, fn, args, predicted):
+    """Phase 20 (b): ``torch.cuda.max_memory_allocated()`` over one
+    ``fn(*args)``, measured from a reset, beside the dry run's
+    ``mem_per_device_bytes`` (``predicted``).  What the process holds
+    beside the step's arguments (``memory_allocated`` at the reset less
+    the arguments' storages) is taken off the peak before the two are
+    held within MEM_TOL of each other."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del out
+    args_b = storage_bytes(args)
+    measured = peak - (base - args_b)
+    rel = abs(measured - predicted) / measured
+    assert rel <= MEM_TOL, (predicted, measured, peak, base, args_b)
+    return {"predicted_bytes": predicted, "max_memory_allocated": peak,
+            "allocated_at_reset": base, "argument_bytes": args_b,
+            "measured_bytes": measured, "rel_diff": rel}
+
+
+def check_step_counts(dev, cfg, params, opt, batch, seq, lr):
+    """Phase 20 (a) and (b) on the model phase 18 (b) trained: the dry
+    run's tracer (``launch/hlo_analysis.trace``, fake CUDA tensors) over
+    ``launch/train.py``'s step at this batch, f32 masters and bf16
+    compute as trained, against the op counter over one real step on the
+    card: ``dot_flops`` equal as integers, the trace's ``kernel_flops``
+    equal to the step's launches times each kernel's per-call formula
+    (``kernels/cost.py``), ``FlopCounterMode``'s count printed beside;
+    then the predicted ``mem_per_device_bytes`` against a measured step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import cost, ops
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.steps import make_train_step
+    step, _ = make_train_step(cfg, train_cfg=TrainConfig(
+        learning_rate=lr, remat=False))
+    data = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+        cfg, InputShape("cli", seq, batch, "train"), seed=100).items()}
+    args = (params, opt, data)
+    tr = hlo_analysis.trace(step, args, "cuda")
+    pred = tr["counts"]
+    ops.reset_launches()
+    counter = hlo_analysis.OpCounter()
+    flops = FlopCounterMode(display=False)
+    counter.watch(args)
+    with flops, counter:
+        out = step(*args)
+    counter.finish(out)
+    torch.cuda.synchronize()
+    del out
+    real = hlo_analysis.analyze(counter.trace())
+    launches = dict(ops.LAUNCHES)
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    per_call = cost.flash_attention(batch, seq, H, KH, hd, 2, True)[1]
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert sum(launches.values()) == launches["flash_attention"], launches
+    assert pred["dot_flops"] == real["dot_flops"], (pred, real)
+    assert pred["kernel_flops"] == {
+        "flash_attention": launches["flash_attention"] * per_call}, pred
+    assert pred["mem_argument_bytes"] == storage_bytes(args), pred
+    predicted = pred["mem_argument_bytes"] + pred["mem_temp_bytes"]
+    mem = step_memory(dev, step, args, predicted)
+    return {"trace_s": tr["seconds"], "dot_flops_trace": pred["dot_flops"],
+            "dot_flops_card": real["dot_flops"],
+            "kernel_flops_trace": pred["kernel_flops"],
+            "launches": launches, "flops_per_flash_call": per_call,
+            "flop_counter_trace": tr["flop_counter"],
+            "flop_counter_card": flops.get_total_flops(),
+            "traffic_bytes_trace": pred["traffic_bytes"],
+            "traffic_bytes_card": real["traffic_bytes"],
+            "memory": mem}
+
+
+def check_decode_memory(dev, eng):
+    """Phase 20 (b) at phase 8's engine: its paged decode step (8 rows at
+    DECODE_POS, each row's pages mapped) traced by the dry run's tracer,
+    one ``paged_attention`` call a layer recorded, and its predicted
+    ``mem_per_device_bytes`` against the same step measured on the card."""
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models import transformer as T
+    cfg, B, P = eng.cfg, eng.max_slots, eng.page_size
+    M = eng.pages_per_slot
+    assert len(DECODE_POS) == B and eng.num_pages >= 1 + B * M
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    table = torch.full((B, M), -1, dtype=torch.int32, device=dev)
+    for b, p in enumerate(DECODE_POS):
+        n = p // P + 1
+        table[b, :n] = torch.arange(1 + b * M, 1 + b * M + n,
+                                    dtype=torch.int32, device=dev)
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    @torch.no_grad()
+    def decode(params, caches, tok, pos, table):
+        return T.decode_step(params, cfg, tok, pos, caches,
+                             eng.window_override, page_table=table)[0]
+
+    args = (eng.params, eng._caches, tok, pos, table)
+    tr = hlo_analysis.trace(decode, args, "cuda")
+    pred = tr["counts"]
+    assert pred["kernel_calls"] == {"paged_attention": cfg.num_layers}, pred
+    predicted = pred["mem_argument_bytes"] + pred["mem_temp_bytes"]
+    return {"trace_s": tr["seconds"], "dot_flops_trace": pred["dot_flops"],
+            "memory": step_memory(dev, decode, args, predicted)}
+
+
+def run_analyzer():
+    """Phase 20 (c): ``python -m repro_torch.analysis --strict`` in a
+    subprocess from the repository's root, with ``jax`` blocked there
+    (an import of it would raise); exit code 0 required."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.argv = ['repro_torch.analysis', '--strict']; "
+            "runpy.run_module('repro_torch.analysis', run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout.strip().splitlines()[-1]
 
 
 def pixtral_requests(cfg, n_text, gen_tokens, seed, count):
@@ -2886,97 +3020,6 @@ def run_pixtral(dev):
     return launches, stats
 
 
-def paged_bound(args):
-    """Bytes and operations of one paged decode call on these inputs:
-    q and out, the table and positions, and each row's mapped pages that
-    hold a visible key (k, v and slot positions of the page, read once);
-    ~4 * H * hd flops per visible key."""
-    q, kp, vp, sp, table, pos = args
-    B, H, hd = q.shape
-    N, P, KH, _ = kp.shape
-    sp, table, pos = sp.cpu(), table.cpu(), pos.cpu()
-    es = q.element_size()
-    bytes_ = 2 * B * H * hd * es + table.numel() * 4 + B * 4
-    keys = 0
-    for b in range(B):
-        qp = int(pos[b])
-        if qp < 0:
-            continue
-        for v in range(qp // P + 1):
-            pid = int(table[b, v])
-            if pid >= 0:
-                bytes_ += 2 * P * KH * hd * es + P * 4
-                sl = sp[pid]
-                keys += int(((sl >= 0) & (sl <= qp)).sum())
-    return bytes_, keys * 4 * H * hd
-
-
-def flash_bound(B, S, H, KH, hd, es, causal=True):
-    # q, k, v read once, out written once; QK^T and PV over the causal
-    # (or, bidirectional, all) pairs, 4 * hd flops each
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
-    return es * (2 * B * S * H * hd + 2 * B * S * KH * hd), 4 * hd * pairs
-
-
-# ------------------------------------------------------------- bounds ----
-def env_bound(N, J, obs_dim, substeps):
-    """Bytes, and the operations as (count, peak) pairs whose times add:
-    the observation projection in three TF32 passes on the tensor cores,
-    the rest on the fp32 pipe."""
-    R = 6 + 4 * J + 3
-    # reads q, qd, action (N,J) f32, root (N,6), t/seed/resets (N,) i32 and
-    # the constants; writes q, qd, prev_action, root, t, resets, obs,
-    # reward, done.  prev_action is an input the step never reads.
-    bytes_ = 4 * (3 * N * J + 6 * N + 3 * N + R * obs_dim + 3 * J) \
-        + 4 * (3 * N * J + 6 * N + 2 * N + N * obs_dim + 2 * N)
-    # observation projection, then tanh and ~32 fp32 ops a joint a
-    # substep (coupling, gravity, qdd, clip, Euler, tip cumsum, thrust
-    # sums, counting each sin/cos as one) plus ~30 a substep for the root
-    proj = 2 * N * R * obs_dim
-    rest = N * obs_dim + N * substeps * (32 * J + 30)
-    return bytes_, [(proj, PEAK_3XTF32), (rest, PEAK_F32)]
-
-
-def gae_bound(T, N):
-    # reads r, v, d (T,N) and last (N); writes adv, ret (T,N); ~13 ops an
-    # element (scan 7, mean and centred variance 4, normalise 2)
-    return 4 * (3 * T * N + N + 2 * T * N), 13 * T * N
-
-
-def trunk_bound(dims, N):
-    pairs = list(zip(dims[:-1], dims[1:]))
-    bytes_ = 4 * (N * dims[0] + sum(a * b + b for a, b in pairs)
-                  + N * dims[-1])
-    ops_ = sum(2 * N * a * b + 2 * N * b for a, b in pairs)
-    return bytes_, ops_
-
-
-def nstep_bound(T, N):
-    # reads r, d (T,N) and bootstrap (N); writes G (T,N); 4 ops an element
-    return 4 * (3 * T * N + N), 4 * T * N
-
-
-def pack_bound(T, N, obs_dim, act_dim):
-    # every payload element read once and written once; no arithmetic
-    return 2 * (4 * (T * N * (obs_dim + act_dim + 2) + N) + 4), 0
-
-
-def bound_ms(bytes_, ops_, peak_ops=PEAK_F32):
-    """The larger of the bytes' time and the operations' time; ``ops_``
-    is a count at ``peak_ops``, or a list of (count, peak) pairs whose
-    times add."""
-    tb = bytes_ / PEAK_BYTES * 1e3
-    if isinstance(ops_, list):
-        to = sum(o / p for o, p in ops_) * 1e3
-    else:
-        to = ops_ / peak_ops * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
-
-
-def op_count(ops_):
-    return sum(o for o, _ in ops_) if isinstance(ops_, list) else ops_
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2984,7 +3027,7 @@ def main() -> int:
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     sys.path.insert(0, src)
     from repro_torch.envs import SPECS, make_env
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, cost, ops, ref
     from repro_torch.rl.ppo import PPOConfig, init_train, make_train_step
     from repro_torch.utils import tree_leaves
 
@@ -3249,6 +3292,8 @@ def main() -> int:
     print(f"[serve] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
           f"{stats['decode_tok_s']:,.1f} tok/s "
           f"({stats['decode_ms_per_step']:.3f} ms a step at up to 8 rows)")
+    # phase 20 (b) for this engine's decode step; printed with phase 20
+    p20_decode = check_decode_memory(dev, eng)
     del eng
 
     # 9. small xlstm engine against the CPU -------------------------------
@@ -3490,9 +3535,10 @@ def main() -> int:
         print(f"[lm] (a) f32 card vs CPU, reduced {json.dumps(r)}")
     print(f"[lm] (a) loss within 1e-5, every gradient leaf within 1e-4 of "
           f"the CPU leaf's largest; launches {la}")
+    lm_stats = {}
     for tag, (arch, b, sq, n) in zip(("b", "c"), LM_RUNS):
         torch.cuda.empty_cache()
-        la, st = run_lm(dev, arch, b, sq, n)
+        la, st = lm_stats[arch] = run_lm(dev, arch, b, sq, n)
         by_path[f"lm_{arch.split('-')[0]}"] = la
         print(f"[lm] ({tag}) {arch} full width and depth ({st['layers']} "
               f"layers, {st['params']:,} params), f32 masters + Adam, bf16 "
@@ -3502,8 +3548,9 @@ def main() -> int:
               f"training tokens/s (median of steps 2-{n}; best "
               f"{st['tokens_per_s_best']:,.1f}), step ms "
               f"{[round(x, 2) for x in st['step_ms']]}, model-FLOP share "
-              f"{st['model_flop_share_median']:.4f} of the {PEAK_BF16:.3g} "
-              f"flop/s bf16 peak (6 x params x tokens), peak "
+              f"{st['model_flop_share_median']:.4f} of the "
+              f"{cost.PEAK_BF16:.3g} flop/s bf16 peak (6 x params x tokens), "
+              f"peak "
               f"{st['peak_mem_gb']:.2f} GB | {card_line()}")
     print(f"[lm] phase 18 took {time.perf_counter() - t18:.1f} s")
 
@@ -3527,6 +3574,37 @@ def main() -> int:
           f"{P_SLOTS} rows), peak {stats['peak_mem_gb']:.2f} GB | "
           f"{card_line()}")
     print(f"[pixtral] phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    # 20. the dry run's counts against the card; the analyzer -------------
+    t20 = time.perf_counter()
+    p20 = lm_stats[ARCH][1]["phase20"]
+    print(f"[phase20] (a) {ARCH} train step, {LM_RUNS[0][1]} x "
+          f"{LM_RUNS[0][2]}, f32 masters + bf16 "
+          f"compute: dot_flops traced on fake CUDA "
+          f"{p20['dot_flops_trace']:.0f} == counted over the real step "
+          f"{p20['dot_flops_card']:.0f}; kernel_flops traced "
+          f"{json.dumps(p20['kernel_flops_trace'])} == launches "
+          f"{p20['launches']['flash_attention']} x "
+          f"{p20['flops_per_flash_call']} a flash call; FlopCounterMode "
+          f"(its own definition) traced {p20['flop_counter_trace']:.0f}, "
+          f"card {p20['flop_counter_card']:.0f}; traffic bytes traced "
+          f"{p20['traffic_bytes_trace']:.0f}, card "
+          f"{p20['traffic_bytes_card']:.0f}; trace "
+          f"{p20['trace_s']:.2f} s")
+    for tag, m in ((f"{ARCH} train step", p20["memory"]),
+                   (f"phase 8's {ARCH} paged decode step (8 rows)",
+                    p20_decode["memory"])):
+        held = m["allocated_at_reset"] - m["argument_bytes"]
+        print(f"[phase20] (b) {tag}: predicted mem_per_device_bytes "
+              f"{m['predicted_bytes']:,} vs torch.cuda.max_memory_allocated"
+              f"() {m['max_memory_allocated']:,} from a reset (held beside "
+              f"the arguments {held:,}; the step's own "
+              f"{m['measured_bytes']:,}): "
+              f"{100 * m['rel_diff']:.2f}% apart (tol "
+              f"{100 * MEM_TOL:.0f}%) | {card_line()}")
+    print(f"[phase20] (c) python -m repro_torch.analysis --strict with jax "
+          f"blocked: exit 0 ({run_analyzer()})")
+    print(f"[phase20] phase 20 took {time.perf_counter() - t20:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------
@@ -3555,21 +3633,23 @@ def main() -> int:
                                       *consts, **kw),
             lambda: ref.mega_step(*st, action, obs0, None, 0, 0, *consts,
                                   **kw),
-            None, env_bound(N_MAIN, spec.act_dim, spec.obs_dim,
-                            spec.substeps)),
+            None, cost.env_mega_step(N_MAIN, spec.act_dim, spec.obs_dim,
+                                     spec.substeps)),
         "gae_norm": (lambda: ops.gae_norm(r, v, d, last),
                      lambda: ref.gae_norm_ref(r, v, d, last), None,
-                     gae_bound(T_MAIN, N_MAIN)),
+                     cost.gae_norm(T_MAIN, N_MAIN)),
         "policy_mlp": (lambda: ops.policy_mlp(x, ws, bs),
                        lambda: ref.policy_mlp_ref(x, ws, bs), chain,
-                       trunk_bound(trunk_dims, N_MAIN), PEAK_3XTF32),
+                       cost.policy_mlp(trunk_dims, N_MAIN),
+                       cost.PEAK_3XTF32),
         "nstep_returns": (lambda: ops.nstep_returns(r, d, last),
                           lambda: ref.nstep_returns_ref(r, d, last), None,
-                          nstep_bound(T_MAIN, N_MAIN)),
+                          cost.nstep_returns(T_MAIN, N_MAIN)),
         "pack_channels": (lambda: ops.pack_channels(bufs, pay, 1),
                           lambda: ref.pack_channels_ref(bufs, pay, 1),
-                          copies, pack_bound(T_MAIN, N_A3C, spec.obs_dim,
-                                             spec.act_dim)),
+                          copies, cost.pack_channels(T_MAIN, N_A3C,
+                                                     spec.obs_dim,
+                                                     spec.act_dim)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_t = {}
@@ -3582,22 +3662,23 @@ def main() -> int:
             lambda fq=fq, fk=fk, fv=fv, fc=fc: ref.attention_ref(
                 fq, fk, fv, causal=fc),
             lambda ft=ft, fc=fc: sdpa(*ft, is_causal=fc, enable_gqa=True),
-            flash_bound(fb, fs, fh, fkh, fhd, 2, fc), PEAK_BF16)
+            cost.flash_attention(fb, fs, fh, fkh, fhd, 2, fc),
+            cost.PEAK_BF16)
     paged_t = {}
     for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
         paged_t[(pb, pa[0].shape[1], pa[0].shape[2])] = (
             lambda pa=pa: ops.paged_attention(*pa),
             lambda pa=pa: ref.paged_attention_ref(*pa), None,
-            paged_bound(pa), PEAK_BF16)
+            cost.paged_attention(*pa), cost.PEAK_BF16)
     timings["paged_attention"] = paged_t[(8, FH, FHD)]
     timings["flash_attention"] = flash_t[(3, 128, FHD)]
     (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
     timings["mlstm_chunkwise"] = (
         lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
         lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
-        mlstm_bound(*shape[:4], mc), PEAK_3XTF32)
+        cost.mlstm_chunkwise(*shape[:4], mc), cost.PEAK_3XTF32)
     def timed(kern, plain, lib, nbytes, nops, *peak):
-        b_ms, b_by = bound_ms(nbytes, nops, *peak)
+        b_ms, b_by = cost.bound_ms(nbytes, nops, *peak)
         # plain, kernel, kernel, plain: report the mean of each pair
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
@@ -3605,7 +3686,7 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": time_ms(lib) if lib else None,
                 "host_ms": host_ms(kern), "bytes": nbytes,
-                "ops": op_count(nops)}
+                "ops": cost.op_count(nops)}
 
     for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
         row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -3663,7 +3744,7 @@ def main() -> int:
                   f"host time of a call on its own {sh['host_ms']:.4f} ms")
         if name == "env_mega_step":
             nb_, no_ = timings[name][3]
-            f32_ms, f32_by = bound_ms(nb_, op_count(no_))
+            f32_ms, f32_by = cost.bound_ms(nb_, cost.op_count(no_))
             print(f"[time] env_mega_step bound both ways: "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}) with the "
                   f"projection in three TF32 passes on the tensor cores, "

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device times of the env step, GAE, paged-decode and chunkwise mLSTM
 kernels at ``chip_smoke.py``'s timing shapes, in all and by launched
-kernel, each wrapper call's time by CUDA events (``chip_smoke.time_ms``)
-and its host time on its own (``chip_smoke.host_ms``), with whichever
+kernel, each wrapper call's time by CUDA events (``chip_smoke.time_ms``),
+its host time on its own (``chip_smoke.host_ms``) and its bound from
+``kernels/cost.py`` (where the checkout has it), with whichever
 ``repro_torch`` is on ``PYTHONPATH``, printed as one JSON line.
 
     PYTHONPATH=src python3 kernel_times.py
@@ -61,11 +62,15 @@ def main() -> int:
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, env_megakernel, ops
+    try:
+        from repro_torch.kernels import cost
+    except ImportError:          # a checkout from before kernels/cost.py
+        cost = None
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
-    _, st, action, obs0, consts, kw = cs.env_inputs(cs.ENV, cs.N_MAIN, gen,
-                                                    dev)
+    env, st, action, obs0, consts, kw = cs.env_inputs(cs.ENV, cs.N_MAIN,
+                                                      gen, dev)
     sensor1 = consts[0][:, :1].contiguous()
     gae = cs.gae_inputs(cs.T_MAIN, cs.N_MAIN, gen, dev)
     fc = get_config(cs.ARCH)
@@ -83,6 +88,19 @@ def main() -> int:
         "paged_attention": lambda: ops.paged_attention(*paged),
         "mlstm_chunkwise": lambda: ops.mlstm_chunkwise(*ml, chunk=chunk)}
     res = {"repro_torch": repro_torch.__file__, "card": cs.card_line()}
+    if cost is not None:
+        spec = env.spec
+        B, H, S, dh = shape
+        for name, (nbytes, nops, *peak) in {
+                "env_mega_step": cost.env_mega_step(
+                    cs.N_MAIN, spec.act_dim, spec.obs_dim, spec.substeps),
+                "gae_norm": cost.gae_norm(cs.T_MAIN, cs.N_MAIN),
+                "paged_attention": (*cost.paged_attention(*paged),
+                                    cost.PEAK_BF16),
+                "mlstm_chunkwise": (*cost.mlstm_chunkwise(B, H, S, dh,
+                                                          chunk),
+                                    cost.PEAK_3XTF32)}.items():
+            res[name + "_bound_ms"] = cost.bound_ms(nbytes, nops, *peak)[0]
     for name, fn in calls.items():
         by_kernel = cs.device_times(fn)
         res[name] = sum(by_kernel.values()) or None

@@ -46,13 +46,17 @@ def launch(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: operands must be 16-byte aligned")
     win = BIG_WINDOW if window is None else int(window)
+    # scale and softcap are Python numbers here, not device values
+    # repro: allow(host-sync-in-hot-path)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    # repro: allow(host-sync-in-hot-path)
+    softcap = 0.0 if softcap is None else float(softcap)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
         H, KH, hd, int(bool(causal)), win,
-        hd ** -0.5 if scale is None else float(scale),
-        0.0 if softcap is None else float(softcap), _DTYPES[dt],
+        scale, softcap, _DTYPES[dt],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -24,6 +24,23 @@ def _lib():
     return lib
 
 
+def buffers(B, H, S, dh, L, dev):
+    """What a call allocates: the outputs h, C, n, m, then the scratch: P
+    (B*H, S, L); the state before each chunk after the first (B*H, S/L -
+    1, dh, dh); n before each chunk (B*H, S/L, dh); six per-step and two
+    per-chunk vectors."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    nc = S // L
+    return (torch.empty((B, H, S, dh), **f32),
+            torch.empty((B, H, dh, dh), **f32),
+            torch.empty((B, H, dh), **f32), torch.empty((B, H), **f32),
+            torch.empty((B * H, S, L), **f32),
+            torch.empty((max(1, B * H * (nc - 1)), dh, dh), **f32),
+            torch.empty((B * H, nc, dh), **f32),
+            torch.empty((6, B * H, S), **f32),
+            torch.empty((2, B * H, nc), **f32))
+
+
 def launch(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     B, H, S, dh = q.shape
     L = min(int(chunk), S)
@@ -41,25 +58,12 @@ def launch(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     if any(x.data_ptr() % 16 for x in (q, k, v, C0)):
         raise ValueError("mlstm_chunkwise: q, k, v and C0 must be 16-byte "
                          "aligned")
-    dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    h = torch.empty((B, H, S, dh), **f32)
-    C = torch.empty((B, H, dh, dh), **f32)
-    n = torch.empty((B, H, dh), **f32)
-    m = torch.empty((B, H), **f32)
-    # scratch: P (B*H, S, L); the state before each chunk after the first
-    # (B*H, S/L - 1, dh, dh); n before each chunk (B*H, S/L, dh); six
-    # per-step and two per-chunk vectors
-    nc = S // L
-    P = torch.empty((B * H, S, L), **f32)
-    Cst = torch.empty((max(1, B * H * (nc - 1)), dh, dh), **f32)
-    nst = torch.empty((B * H, nc, dh), **f32)
-    steps = torch.empty((6, B * H, S), **f32)
-    chunks = torch.empty((2, B * H, nc), **f32)
+    h, C, n, m, P, Cst, nst, steps, chunks = buffers(B, H, S, dh, L,
+                                                     q.device)
     err = _lib().mlstm_chunkwise_launch(
         *(t.data_ptr() for t in (q, k, v, log_i, log_f, C0, n0, m0, h, C, n,
                                  m, P, Cst, nst, *steps, *chunks)),
-        B * H, S, L, dh, torch.cuda.current_stream(dev).cuda_stream)
+        B * H, S, L, dh, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise kernel launch failed: CUDA "
                            f"error {err}")

@@ -10,6 +10,17 @@ current stream, and raises if the launch fails.  Nothing falls back.
 counts nothing), so a run can show that its main path went through the
 kernels.  ``reset_launches()`` sets every count to 0.
 
+A traced step (``launch/hlo_analysis.py``) hands the wrappers fake
+tensors.  A fake tensor that stands for the card (one on a CUDA device,
+or one on the CPU under a counter tracing the card's program, since a
+PyTorch build without CUDA cannot run autograd on fake CUDA tensors)
+takes the kernel's place in the trace: the wrapper builds nothing,
+launches nothing and counts no launch; it allocates what the launch
+allocates (outputs of the kernel's shapes and dtypes, and its scratch)
+and reports the call's bytes and operations (``cost.py``) to every
+active counter in ``TRACERS``.  A fake CPU tensor otherwise takes the
+plain version, as a real one does.
+
 The two kernels a training forward runs, ``flash_attention`` and
 ``mlstm_chunkwise``, write their outputs through ctypes, which autograd
 cannot see.  Their CUDA launch runs inside a ``torch.autograd.Function``:
@@ -23,17 +34,33 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 
 LAUNCHES = {"env_mega_step": 0, "gae_norm": 0, "policy_mlp": 0,
             "nstep_returns": 0, "pack_channels": 0, "paged_attention": 0,
             "flash_attention": 0, "mlstm_chunkwise": 0}
 
 
+# the op counters tracing a step, while they are active
+TRACERS: list = []
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _traced(x) -> bool:
+    """True for a fake tensor that stands for the card."""
+    return isinstance(x, FakeTensor) and (
+        x.device.type == "cuda" or any(t.card for t in TRACERS))
+
+
+def _record(name: str, nbytes, nops):
+    for t in TRACERS:
+        t.record_kernel(name, cost.op_count(nops), nbytes)
 
 
 def _on_cpu(x, op: str) -> bool:
@@ -59,6 +86,17 @@ def env_mega_step(q, qd, root, prev_action, t, seed, resets, action, obs,
             step_t, slot, sensor, tgt, masses, lengths)
     kw = dict(chain=chain, task=task, substeps=substeps, dt=dt,
               max_episode_len=max_episode_len)
+    if _traced(q):
+        N, J = q.shape
+        obs_dim = sensor.shape[1]
+        _record("env_mega_step", *cost.env_mega_step(N, J, obs_dim, substeps))
+        new = functools.partial(torch.empty, device=q.device)
+        f32, i32 = torch.float32, torch.int32
+        return (new((N, J), dtype=f32), new((N, J), dtype=f32),
+                new((N, 6), dtype=f32), new((N, J), dtype=f32),
+                new((N,), dtype=i32), seed, new((N,), dtype=i32),
+                new((N, obs_dim), dtype=f32), new((N,), dtype=f32),
+                new((N,), dtype=f32), bufs)
     if _on_cpu(q, "env_mega_step"):
         return ref.mega_step(*args, **kw)
     from repro_torch.kernels import env_megakernel
@@ -72,6 +110,11 @@ def gae_norm(rewards, values, dones, last_value, *, gamma=0.99, lam=0.95,
     """Fused GAE + global advantage normalization.  rewards/values/dones:
     (T, N); last_value: (N,).  Returns (normalized_advs, returns), both
     (T, N) float32."""
+    if _traced(rewards):
+        _record("gae_norm", *cost.gae_norm(*rewards.shape))
+        adv = torch.empty(rewards.shape, dtype=torch.float32,
+                          device=rewards.device)
+        return adv, torch.empty_like(adv)
     if _on_cpu(rewards, "gae_norm"):
         return ref.gae_norm_ref(rewards, values, dones, last_value, gamma,
                                 lam, eps)
@@ -85,6 +128,16 @@ def gae_norm(rewards, values, dones, last_value, *, gamma=0.99, lam=0.95,
 def policy_mlp(x, weights, biases):
     """Fused tanh-MLP trunk.  x: (N, d0); weights[i]: (d_i, d_{i+1});
     biases[i]: (d_{i+1},).  Returns (N, d_L)."""
+    if _traced(x):
+        from repro_torch.kernels.fused_policy_mlp import _scratch_floats
+        dims = [x.shape[1]] + [w.shape[1] for w in weights]
+        _record("policy_mlp", *cost.policy_mlp(dims, x.shape[0]))
+        out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32,
+                          device=x.device)
+        # the launch's split-weight scratch, freed when the call returns
+        torch.empty((_scratch_floats(dims),), dtype=torch.float32,
+                    device=x.device)
+        return out
     if _on_cpu(x, "policy_mlp"):
         return ref.policy_mlp_ref(x, weights, biases)
     from repro_torch.kernels import fused_policy_mlp
@@ -97,6 +150,10 @@ def nstep_returns(rewards, dones, bootstrap, *, gamma=0.99):
     """A3C n-step discounted returns: the reverse scan
     ``G_t = r_t + gamma * G_{t+1} * (1 - d_t)`` from ``bootstrap``.
     rewards/dones: (T, N); bootstrap: (N,).  Returns (T, N) float32."""
+    if _traced(rewards):
+        _record("nstep_returns", *cost.nstep_returns(*rewards.shape))
+        return torch.empty(rewards.shape, dtype=torch.float32,
+                           device=rewards.device)
     if _on_cpu(rewards, "nstep_returns"):
         return ref.nstep_returns_ref(rewards, dones, bootstrap, gamma)
     from repro_torch.kernels import gae_scan
@@ -110,6 +167,11 @@ def pack_channels(bufs, payloads, slot: int):
     in one launch; the ``channel_pack`` layout).  ``bufs``/``payloads`` are
     keyed by ``channel_pack.CHANNELS``; ``slot`` is a Python int.  Returns
     ``bufs``."""
+    if _traced(bufs["rewards"]):
+        T, N = payloads["rewards"].shape
+        _record("pack_channels", *cost.pack_channels(
+            T, N, payloads["obs"].shape[-1], payloads["actions"].shape[-1]))
+        return bufs
     if _on_cpu(bufs["rewards"], "pack_channels"):
         return ref.pack_channels_ref(bufs, payloads, slot)
     from repro_torch.kernels import channel_pack
@@ -125,6 +187,12 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions, *,
     slot_pos: (N, page) int32; table: (B, M) int32 (-1 unmapped);
     positions: (B,) int32 (negative = idle row, output 0).  ``window`` is
     a Python int or None.  Returns (B, H, hd) in q's dtype."""
+    if _traced(q):
+        _record("paged_attention", *cost.paged_attention(
+            q, k_pages, v_pages, slot_pos, table, positions))
+        # the split partials (B * H * splits * (hd + 2) floats) are left
+        # out: the split count needs the card's SM count
+        return torch.empty_like(q)
     if _on_cpu(q, "paged_attention"):
         return ref.paged_attention_ref(q, k_pages, v_pages, slot_pos, table,
                                        positions, window=window,
@@ -161,10 +229,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, plain):
-        from repro_torch.kernels import flash_attention as fa
-        out = fa.launch(q, k, v, causal=causal, window=window,
-                        softcap=softcap, scale=scale)
-        LAUNCHES["flash_attention"] += 1
+        if _traced(q):
+            B, S, H, hd = q.shape
+            _record("flash_attention", *cost.flash_attention(
+                B, S, H, k.shape[2], hd, q.element_size(), causal))
+            out = torch.empty_like(q)
+        else:
+            from repro_torch.kernels import flash_attention as fa
+            out = fa.launch(q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale)
+            LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v)
         ctx.plain = plain if plain is not None else functools.partial(
             ref.attention_ref, causal=causal, window=window,
@@ -183,7 +257,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd).  Returns (B, Sq, H, hd).
     On the card its gradient is autograd of ``plain(q, k, v)``, the plain
     route the caller attends by (``ref.attention_ref`` when None)."""
-    if _on_cpu(q, "flash_attention"):
+    if not _traced(q) and _on_cpu(q, "flash_attention"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, scale=scale)
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
@@ -197,9 +271,15 @@ class _MLSTMChunkwise(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, log_i, log_f, C0, n0, m0, chunk):
         from repro_torch.kernels import mlstm_scan
-        out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0,
-                                chunk=chunk)
-        LAUNCHES["mlstm_chunkwise"] += 1
+        if _traced(q):
+            B, H, S, dh = q.shape
+            L = min(int(chunk), S)
+            _record("mlstm_chunkwise", *cost.mlstm_chunkwise(B, H, S, dh, L))
+            out = mlstm_scan.buffers(B, H, S, dh, L, q.device)[:4]
+        else:
+            out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0,
+                                    chunk=chunk)
+            LAUNCHES["mlstm_chunkwise"] += 1
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, log_i, log_f, C0, n0, m0)
         ctx.chunk = chunk
@@ -219,6 +299,6 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     (B, H, dh); m0: (B, H); all f32.  Returns (h (B, H, S, dh), C, n, m).
     On the card its gradient is the plain version's."""
     args = (q, k, v, log_i, log_f, C0, n0, m0)
-    if _on_cpu(q, "mlstm_chunkwise"):
+    if not _traced(q) and _on_cpu(q, "mlstm_chunkwise"):
         return ref.mlstm_chunkwise_ref(*args, chunk)
     return _MLSTMChunkwise.apply(*args, chunk)

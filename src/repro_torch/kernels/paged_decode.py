@@ -77,6 +77,11 @@ def launch(q, k_pages, v_pages, slot_pos, table, positions, *, window=None,
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_attention: operands must be 16-byte aligned")
     win = BIG_WINDOW if window is None else int(window)
+    # scale and softcap are Python numbers here, not device values
+    # repro: allow(host-sync-in-hot-path)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    # repro: allow(host-sync-in-hot-path)
+    softcap = 0.0 if softcap is None else float(softcap)
     dev = q.device
     nsplit = num_splits(B, KH, P, M, torch.cuda.get_device_properties(
         dev).multi_processor_count)
@@ -93,8 +98,7 @@ def launch(q, k_pages, v_pages, slot_pos, table, positions, *, window=None,
         out.data_ptr(), part.data_ptr(),
         part.data_ptr() + 4 * B * H * nsplit * hd, tickets.data_ptr(),
         B, H, KH, hd, P, M, win, nsplit,
-        hd ** -0.5 if scale is None else float(scale),
-        0.0 if softcap is None else float(softcap), _DTYPES[dt], stream)
+        scale, softcap, _DTYPES[dt], stream)
     if err != 0:
         # a launch that failed may have left tickets taken
         tickets.zero_()

@@ -220,6 +220,7 @@ class AsyncRunner:
             self.actors[a] = [es, obs, torch.Generator(self.device)
                               .manual_seed(self.seed + 100 + a)]
 
+    # repro: hot
     def _train(self, routed):
         """Consume routed trainer batches; returns (losses, staleness)."""
         losses, stale = [], []
@@ -259,8 +260,10 @@ class AsyncRunner:
             self.trained_samples += exp.rewards.numel()
             self.version += 1
         # losses stay on the device until this single read
+        # repro: allow(host-sync-in-hot-path)
         return (torch.stack(losses).tolist() if losses else []), stale
 
+    # repro: hot
     def round(self, noise=None):
         """One serve -> ship -> train round; returns (losses, staleness).
         ``noise`` optionally maps each serving GMI to its (T, N, act)
@@ -269,7 +272,7 @@ class AsyncRunner:
         With overlap on, the trained batches are the previous round's
         flush (the first round returns no losses)."""
         # host wall time of the round feeds the controller's ladder
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro: allow(host-sync-in-hot-path)
         # megakernel envs on blocking rings produce experience straight
         # into the ring slot (collect_ring): no staged Trajectory, no
         # pack_channels re-copy.  Overlap rings stage references, so they
@@ -309,6 +312,7 @@ class AsyncRunner:
         if self.controller is not None:
             decision = self.controller.observe_pipeline(
                 self.pipe, samples=self.trained_samples - before,
+                # repro: allow(host-sync-in-hot-path)
                 dt=time.perf_counter() - t0)
             if decision is not None:
                 if decision.layout_changed:

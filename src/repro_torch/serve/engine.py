@@ -913,6 +913,7 @@ class ServeEngine:
             self._prefill_batch([(req, slot, [], None)], done)
         return done
 
+    # repro: hot
     def step(self) -> List[Completion]:
         """Admit from the queue, advance chunked prefills, run ONE batched
         decode step, retire finished requests.  Returns this step's
@@ -920,6 +921,7 @@ class ServeEngine:
         with self.scope():
             return self._step()
 
+    # repro: hot
     def _step(self) -> List[Completion]:
         if self.fault_hook is not None:
             try:
@@ -943,13 +945,14 @@ class ServeEngine:
             return done
         # the token readback is the one host sync a step: continuous
         # batching needs the ids on the host to retire slots
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro: allow(host-sync-in-hot-path)
         table = self._table_device() if self.paged else None
         tok = self._decode(self._caches,
                            torch.as_tensor(self._tok, device=self.device),
                            self._pos, self._seed, self._temp, table)
+        # repro: allow(host-sync-in-hot-path)
         tok_host = tok.cpu().numpy()
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # repro: allow(host-sync-in-hot-path)
         emitted = 0
         for i in active:
             st = self._slots[i]

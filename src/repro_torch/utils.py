@@ -25,6 +25,43 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _tensors(tree):
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def tree_size(tree) -> int:
+    """Total number of tensor elements in a tree (meta and fake tensors
+    included: only shapes are read)."""
+    return sum(x.numel() for x in _tensors(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _tensors(tree))
+
+
+def count_params(params) -> int:
+    return tree_size(params)
+
+
+def cast_tree(tree, dtype):
+    """Floating-point leaves cast to ``dtype``; the others as they are."""
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, tree)
+
+
+def assert_finite(tree, name: str = "tree"):
+    """Raise on the first leaf holding a NaN or an infinity.  Meta and fake
+    tensors hold no values, so they pass."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    for path, leaf in pytree.tree_flatten_with_path(tree)[0]:
+        if not isinstance(leaf, torch.Tensor) or leaf.is_meta \
+                or isinstance(leaf, FakeTensor):
+            continue
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(
+                f"non-finite values in {name}{pytree.keystr(path)}")
+
+
 def global_norm(tree) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(sum(leaves))
