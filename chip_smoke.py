@@ -10,8 +10,9 @@ multi-agent env family, serving the mixture-of-experts family at
 granite-moe-1b-a400m's and Mamba2/zamba2 at zamba2-7b's full width, LM
 training (``launch/train.py --workload lm``) at internlm2-1.8b's and
 hubert-xlarge's full width and depth with gradients through the attention
-and mLSTM kernels' autograd Functions, and serving pixtral-12b's patch
-embeddings ahead of its text at full width.
+and mLSTM kernels' autograd Functions, serving pixtral-12b's patch
+embeddings ahead of its text at full width, and sharded LM steps as rank
+0 of the production mesh and on an NCCL world.
 
     python3 chip_smoke.py
 
@@ -286,7 +287,29 @@ each asserting, in order:
    ``torch.cuda.max_memory_allocated()`` of that step and of phase 8's
    paged decode step, each measured from a reset, within ``MEM_TOL``;
    (c) ``python -m repro_torch.analysis --strict`` in a subprocess
-   with ``jax`` blocked, exit code 0.
+   with ``jax`` blocked, exit code 0;
+21. (also before 13) sharded LM steps: (a) rank 0 of the (16, 16) mesh
+   under the ``fake`` process group (the other 255 ranks exist only as
+   the group's size, and collectives move nothing) at internlm2-1.8b's
+   and qwen2-72b's train_4k, full width and depth (16 x 4096 tokens a
+   rank), f32 masters drawn straight into the rank's shards and bf16
+   compute: the dry run's tracer over the sharded step on fake CUDA
+   shards, then three real steps, the first under the op counter, the
+   second timed (compute only) and measured from a reset, the third the
+   same with the flash backward's recompute unchunked (printed beside, no
+   gate): per-device dot
+   FLOPs equal as integers, argument bytes equal, the flash kernel
+   launched at the rank's heads as the trace recorded it (its bytes and
+   FLOPs pin the rank's shape: 16 x 4096, hd 128, 1 q head on 1 kv head
+   at internlm2, 4 on 1 at qwen2), predicted and measured peak bytes
+   within ``MEM_TOL``; then the flash kernel alone at that shape, its
+   bf16 forward against the plain version (one bf16 ulp) and, in f32,
+   its gradients, recomputed in chunks of batch rows there, against
+   autograd of the attention block's plain route (1e-4); the same at reduced
+   xlstm-1.3b as rank 0 of a (2, 2) mesh, its mLSTM kernel on 2 of 4
+   heads; (b) a real NCCL world of ``torch.cuda.device_count()`` ranks
+   (one card: a (1, 1) mesh) running reduced internlm2-1.8b's sharded
+   HAR step, loss within 1e-5 of the unsharded step's on the card.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -433,6 +456,10 @@ TOL = {"env_mega_step": 1e-4, "gae_norm": 1e-4, "policy_mlp": 1e-4,
        "mlstm_chunkwise": 1e-4}
 # phase 20 (b): predicted and measured peak bytes of a step agree within
 MEM_TOL = 0.10
+# phase 21: (a) the archs run as rank 0 of the (16, 16) mesh at train_4k,
+# and the small mesh reduced xlstm-1.3b's rank 0 runs on
+SH_ARCHS = ("internlm2-1.8b", "qwen2-72b")
+SH_SMALL_MESH = ((2, 2), ("data", "model"))
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
                       "src/repro/kernels/env_megakernel.py:226"),
@@ -2594,6 +2621,34 @@ def run_zamba2(dev):
 
 
 # ------------------------------------------------- LM training (18, 19) ----
+def grads_held(kernel, plain, args, weights):
+    """``kernel``'s outputs against ``plain``'s on clones of ``args``
+    (1e-4 of each output's largest magnitude), then the gradients of
+    every input of sum(output * weight) through both, within 1e-4 of
+    each leaf's largest magnitude.  Returns the worst relative gradient
+    error."""
+    got = [a.clone().requires_grad_() for a in args]
+    want = [a.clone().requires_grad_() for a in args]
+    outs_k, outs_p = kernel(*got), plain(*want)
+    if isinstance(outs_k, torch.Tensor):
+        outs_k, outs_p = (outs_k,), (outs_p,)
+    for o, w in zip(outs_k, outs_p):
+        o, w = o.detach(), w.detach()
+        scale = max(1.0, float(w.abs().max()))
+        assert max_err(o, w) <= 1e-4 * scale, ("forward", max_err(o, w))
+    for outs in (outs_k, outs_p):
+        sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.grad is not None and bool(a.grad.isfinite().all()), i
+        scale = float(b.grad.abs().max())
+        assert scale > 0, ("plain gradient is zero", i)
+        rel = max_err(a.grad, b.grad) / scale
+        assert rel <= 1e-4, ("gradient", i, rel)
+        worst = max(worst, rel)
+    return worst
+
+
 def check_kernel_grads(gen, dev):
     """Phase 2: the autograd Functions around the two training kernels, in
     f32 on the card.  Each forward is the kernel (held against its plain
@@ -2605,31 +2660,6 @@ def check_kernel_grads(gen, dev):
     within 1e-4 of each leaf's largest magnitude.  Returns (worst flash,
     worst mLSTM) relative gradient error."""
     from repro_torch.kernels import ops, ref
-
-    def compare(kernel, plain, args, weights):
-        got = [a.clone().requires_grad_() for a in args]
-        want = [a.clone().requires_grad_() for a in args]
-        outs_k, outs_p = kernel(*got), plain(*want)
-        if isinstance(outs_k, torch.Tensor):
-            outs_k, outs_p = (outs_k,), (outs_p,)
-        for o, w in zip(outs_k, outs_p):
-            o, w = o.detach(), w.detach()
-            scale = max(1.0, float(w.abs().max()))
-            assert max_err(o, w) <= 1e-4 * scale, ("forward", max_err(o, w))
-        sum(((o * w).sum() for o, w in zip(outs_k, weights)),
-            torch.zeros((), device=dev)).backward()
-        sum(((o * w).sum() for o, w in zip(outs_p, weights)),
-            torch.zeros((), device=dev)).backward()
-        worst = 0.0
-        for i, (a, b) in enumerate(zip(got, want)):
-            assert a.grad is not None and bool(a.grad.isfinite().all()), i
-            scale = float(b.grad.abs().max())
-            assert scale > 0, ("plain gradient is zero", i)
-            rel = max_err(a.grad, b.grad) / scale
-            assert rel <= 1e-4, ("gradient", i, rel)
-            worst = max(worst, rel)
-        return worst
-
     f32 = torch.float32
     wf = 0.0
     for (B, S, H, KH, hd), kw in (((2, 256, 16, 8, 128), dict(causal=True)),
@@ -2639,15 +2669,15 @@ def check_kernel_grads(gen, dev):
                                         softcap=5.0))):
         args = flash_inputs(B, S, H, KH, hd, gen, dev, f32)
         w = torch.randn(args[0].shape, generator=gen, device=dev)
-        wf = max(wf, compare(lambda *a: ops.flash_attention(*a, **kw),
-                             lambda *a: ref.attention_ref(*a, **kw), args,
-                             (w,)))
+        wf = max(wf, grads_held(lambda *a: ops.flash_attention(*a, **kw),
+                                lambda *a: ref.attention_ref(*a, **kw),
+                                args, (w,)))
     B, H, S, dh = 2, 4, 64, 128
     args = mlstm_inputs(B, H, S, dh, False, gen, dev)
     ws = [torch.randn(t.shape, generator=gen, device=dev)
           for t in (args[0], args[5], args[6], args[7])]
-    wm = compare(lambda *a: ops.mlstm_chunkwise(*a, chunk=32),
-                 lambda *a: ref.mlstm_chunkwise_ref(*a, 32), args, ws)
+    wm = grads_held(lambda *a: ops.mlstm_chunkwise(*a, chunk=32),
+                    lambda *a: ref.mlstm_chunkwise_ref(*a, 32), args, ws)
     return wf, wm
 
 
@@ -2792,11 +2822,15 @@ def run_lm(dev, arch, batch, seq, steps):
 
 
 def storage_bytes(tree) -> int:
-    """Bytes of the distinct storages of a tree's tensors."""
+    """Bytes of the distinct storages of a tree's tensors (a DTensor's:
+    its local tensor's)."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.utils import tree_leaves
     seen = {}
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor):
+            if isinstance(t, DTensor):
+                t = t.to_local()
             st = t.untyped_storage()
             seen[st.data_ptr()] = st.nbytes()
     return sum(seen.values())
@@ -2924,6 +2958,307 @@ def run_analyzer():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc.stdout.strip().splitlines()[-1]
+
+
+# ------------------------------------------------ sharded LM steps (21) ----
+def rank_train_args(fn, cfg, dm, dev, batch_sds, seed=0):
+    """Rank 0's arguments of a sharded train step: f32 master params drawn
+    from ``seed`` straight into the rank's shards
+    (``partition.init_local``, one layer at a time), zero Adam state in
+    their placements, and the rank's rows of a random token batch."""
+    from repro_torch.dist import partition
+    from repro_torch.optim import adam_init
+    params = partition.init_local(seed, cfg, fn.specs["params"], dm, dev)
+    batch = partition.empty_placed(batch_sds, fn.specs["batch"], dm, dev,
+                                   fill=False)
+    gen = torch.Generator(dev).manual_seed(seed)
+    for v in batch.values():
+        loc = v.to_local()
+        loc.copy_(torch.randint(0, cfg.vocab_size, loc.shape, generator=gen,
+                                device=dev, dtype=loc.dtype))
+    return params, adam_init(params), batch
+
+
+def f32_masters(tree):
+    """Meta stand-ins of ``tree`` with every float leaf in f32."""
+    from repro_torch.utils import tree_map
+    return tree_map(lambda t: torch.empty(
+        t.shape, dtype=torch.float32 if t.is_floating_point() else t.dtype,
+        device="meta"), tree)
+
+
+def run_rank0(dev, cfg, mesh, shape, steps=2):
+    """Rank 0 of ``mesh`` under the ``fake`` process group (the other
+    ranks exist only as the group's size; collectives move nothing): the
+    dry run's tracer over the sharded train step on fake CUDA shards, f32
+    masters and bf16 compute, then ``steps`` real steps on the card, the
+    first under the op counter (the rank's real program), the last timed
+    and measured from a reset; then one more, timed and measured, with the
+    flash backward's recompute unchunked (``ops.BACKWARD_SCORE_BYTES``).
+    Returns the predicted and counted numbers and the launches of the
+    real steps."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_step, place_abstract
+    from repro_torch.optim import AdamState
+    with dryrun.fake_world(mesh.size):
+        dm = mesh_lib.device_mesh(mesh, dev.type)
+        fn, (p_sds, o_sds, b_sds) = make_train_step(cfg, dm, shape,
+                                                    TrainConfig())
+        meta = (f32_masters(p_sds), AdamState(o_sds.step, o_sds.mu,
+                                              o_sds.nu), b_sds)
+        tr = hlo_analysis.trace(
+            fn, meta, "cuda", dmesh=dm,
+            place=lambda a, d: place_abstract("train", fn, a, dm, d))
+        pred = tr["counts"]
+        flash_shape = rank_flash_shape(cfg, dm, shape) \
+            if "flash_attention" in pred["kernel_calls"] else None
+        args = rank_train_args(fn, cfg, dm, dev, b_sds)
+        args_b = storage_bytes(args)
+        ops.reset_launches()
+        counter = hlo_analysis.OpCounter()
+        counter.watch(args)
+        with counter:
+            out = fn(*args)
+        counter.finish(out)
+        torch.cuda.synchronize()
+        del out
+        real = hlo_analysis.analyze(counter.trace())
+        del counter
+        for _ in range(steps - 2):
+            fn(*args)
+        ms, peak, base = timed_step(dev, fn, args)
+        stats = torch.cuda.memory_stats(dev)
+        # one more step with the flash backward unchunked, for its cost
+        chunk_bytes = ops.BACKWARD_SCORE_BYTES
+        ops.BACKWARD_SCORE_BYTES = 1 << 62
+        try:
+            ms_whole, peak_whole, base_whole = timed_step(dev, fn, args)
+        finally:
+            ops.BACKWARD_SCORE_BYTES = chunk_bytes
+        launches = dict(ops.LAUNCHES)
+    predicted = pred["mem_argument_bytes"] + pred["mem_temp_bytes"]
+    measured = peak - (base - args_b)
+    return {"trace_s": tr["seconds"], "pred": pred, "real": real,
+            "flash_shape": flash_shape,
+            "launches": launches, "steps": steps + 1, "step_ms": ms,
+            "step_ms_whole": ms_whole,
+            "measured_bytes_whole": peak_whole - (base_whole - args_b),
+            "argument_bytes": args_b, "predicted_bytes": predicted,
+            "max_memory_allocated": peak, "allocated_at_reset": base,
+            "measured_bytes": measured,
+            "requested_peak": stats.get("requested_bytes.all.peak"),
+            "rel_diff": abs(measured - predicted) / measured}
+
+
+def timed_step(dev, fn, args):
+    """(ms, ``max_memory_allocated``, ``memory_allocated`` at the reset)
+    of one ``fn(*args)`` measured from a reset."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del out
+    return ms, torch.cuda.max_memory_allocated(dev), base
+
+
+def rank_flash_shape(cfg, dm, shape):
+    """(B, S, H, KH, hd) of rank 0's flash calls in a train step on
+    ``dm``: its batch rows and whole q heads (``spmd.HeadLayout``), and
+    the kv heads they meet."""
+    from repro_torch.dist import spmd
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    lay = spmd.HeadLayout(dm, shape.global_batch, H, KH)
+    B = shape.global_batch
+    for d in lay.bdims:
+        B //= dm.size(d)
+    kh = KH // dm.size(lay.mdim) if lay.kv_split \
+        else len(range(KH)[lay.kv_sel])
+    return B, shape.seq_len, lay.Hl, kh, cfg.resolved_head_dim
+
+
+def check_rank_flash(gen, dev, shape):
+    """Phase 21 (a): the flash kernel at a rank's ``shape`` of the path.
+    Its causal bf16 forward against the plain version on the same inputs,
+    one bf16 ulp an element; then in f32 the ``_FlashAttention``
+    gradients of q, k and v, whose backward recomputes the attention
+    block's plain route in chunks of batch rows at this shape
+    (``ops.backward_rows``, asserted to chunk), against autograd of that
+    route over the whole batch (``grads_held``).  Returns (max_abs_err,
+    bf16 ulps, chunk rows, worst relative gradient error)."""
+    import inspect
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    B, S, H, KH, hd = shape
+    err, ulps = check_flash(flash_inputs(B, S, H, KH, hd, gen, dev,
+                                         torch.bfloat16),
+                            TOL["flash_attention"], causal=True)
+    rows = ops.backward_rows(B, H, S, S)
+    assert rows < B, ("the backward does not chunk at", shape)
+    thr = inspect.signature(A.attention).parameters[
+        "chunked_threshold"].default
+    route, scale = A._route(S, S, thr), hd ** -0.5
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+
+    def plain(q, k, v):
+        return route(q, k, v, pos, pos, True, None, None, scale)
+
+    args = flash_inputs(B, S, H, KH, hd, gen, dev, torch.float32)
+    w = torch.randn(args[0].shape, generator=gen, device=dev)
+    worst = grads_held(lambda *a: ops.flash_attention(*a, causal=True,
+                                                      scale=scale,
+                                                      plain=plain),
+                       plain, args, (w,))
+    del args, w
+    torch.cuda.empty_cache()
+    return err, ulps, rows, worst
+
+
+def check_rank0(arch, st):
+    """Phase 21 (a)'s gates on one ``run_rank0``: traced and counted
+    per-device dot FLOPs equal as integers, argument bytes equal, the
+    kernels launched as the trace recorded them a step, and the peak
+    within MEM_TOL."""
+    pred, real = st["pred"], st["real"]
+    assert int(pred["dot_flops"]) == int(real["dot_flops"]), \
+        (arch, pred["dot_flops"], real["dot_flops"])
+    assert pred["mem_argument_bytes"] == st["argument_bytes"], arch
+    want = {k: v * st["steps"] for k, v in pred["kernel_calls"].items()}
+    got = {k: v for k, v in st["launches"].items() if v}
+    assert got == want and got, (arch, got, want)
+    if st["flash_shape"] is not None:
+        from repro_torch.kernels import cost
+        n = pred["kernel_calls"]["flash_attention"]
+        nb, fl = cost.flash_attention(*st["flash_shape"], 2, True)
+        assert (pred["kernel_bytes"]["flash_attention"],
+                pred["kernel_flops"]["flash_attention"]) == (n * nb, n * fl), \
+            (arch, st["flash_shape"], pred["kernel_bytes"])
+    assert st["rel_diff"] <= MEM_TOL, (arch, st["predicted_bytes"],
+                                      st["measured_bytes"])
+
+
+def nccl_rank(rank, world, port, out_path):
+    """Phase 21 (b), one rank of a real NCCL world (one rank a card): the
+    reduced internlm2-1.8b sharded HAR step on a (world // 2, 2) mesh, or
+    (world, 1); rank 0 also runs the unsharded step on the same params
+    and batch and writes both losses and its launches."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    sys.path.insert(0, src)
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.data import make_batch
+    from repro_torch.dist import partition
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        shape = (world // 2, 2) if world % 2 == 0 and world > 1 \
+            else (world, 1)
+        dm = mesh_lib.device_mesh(mesh_lib.make_mesh(shape,
+                                                     ("data", "model")))
+        cfg = get_reduced(ARCH)
+        ishape = InputShape("t", 64, 4 * shape[0], "train")
+        params = T.init_model(0, cfg, dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 make_batch(cfg, ishape, seed=1).items()}
+        fn, _ = TS.make_train_step(cfg, dm, ishape, TrainConfig())
+        p, o = TS.place_train_state(params, adam_init(params),
+                                    fn.specs["params"], dm)
+        b = partition.distribute_tree(batch, fn.specs["batch"], dm)
+        ops.reset_launches()
+        _, _, m = fn(p, o, b)
+        loss = float(m["loss"].full_tensor())
+        launches = dict(ops.LAUNCHES)
+        if rank == 0:
+            plain, _ = TS.make_train_step(cfg, None, ishape, TrainConfig())
+            _, _, mp = plain(params, adam_init(params), batch)
+            with open(out_path, "w") as f:
+                json.dump({"loss": loss, "loss_unsharded": float(mp["loss"]),
+                           "mesh": list(shape), "launches": launches}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_nccl_world(tmp):
+    """Phase 21 (b): ``torch.cuda.device_count()`` NCCL ranks, spawned;
+    rank 0's record."""
+    import multiprocessing
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    world = torch.cuda.device_count()
+    out = os.path.join(tmp, "nccl_rank0.json")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=nccl_rank, args=(r, world, port, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not any(alive), "an NCCL rank did not finish within 300 s"
+    assert [p.exitcode for p in procs] == [0] * world, \
+        [p.exitcode for p in procs]
+    with open(out) as f:
+        rec = json.load(f)
+    assert abs(rec["loss"] - rec["loss_unsharded"]) <= 1e-5, rec
+    return rec
+
+
+def run_sharded(dev):
+    """Phase 21: (a) rank 0 of the (16, 16) mesh at internlm2-1.8b's and
+    qwen2-72b's train_4k, full width and depth, and reduced xlstm-1.3b as
+    rank 0 of a (2, 2) mesh (its mLSTM kernel on 2 of its 4 heads); (b)
+    the NCCL world.  Returns (launches of the whole phase, stats)."""
+    import tempfile
+    from repro_torch.configs import INPUT_SHAPES, get_config, get_reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as mesh_lib
+    stats, launches = {}, {}
+
+    def add(la):
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+    gen = torch.Generator(dev).manual_seed(21)
+    for arch in SH_ARCHS:
+        torch.cuda.empty_cache()
+        st = run_rank0(dev, get_config(arch), mesh_lib.make_production_mesh(),
+                       INPUT_SHAPES["train_4k"])
+        check_rank0(arch, st)
+        add(st["launches"])
+        torch.cuda.empty_cache()
+        st["flash_check"] = check_rank_flash(gen, dev, st["flash_shape"])
+        stats[arch] = st
+    small = mesh_lib.make_mesh(*SH_SMALL_MESH)
+    st = run_rank0(dev, get_reduced(XARCH).replace(dtype="bfloat16"), small,
+                   InputShape("t", 128, 4, "train"))
+    check_rank0(XARCH, st)
+    add(st["launches"])
+    stats[XARCH] = st
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = run_nccl_world(tmp)
+    add(rec["launches"])
+    stats["nccl"] = rec
+    return launches, stats
 
 
 def pixtral_requests(cfg, n_text, gen_tokens, seed, count):
@@ -3605,6 +3940,53 @@ def main() -> int:
     print(f"[phase20] (c) python -m repro_torch.analysis --strict with jax "
           f"blocked: exit 0 ({run_analyzer()})")
     print(f"[phase20] phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    # 21. sharded LM steps: rank 0 of the mesh; a real NCCL world ----------
+    t21 = time.perf_counter()
+    la, sh = run_sharded(dev)
+    by_path["sharded"] = la
+    for arch in SH_ARCHS + (XARCH,):
+        st = sh[arch]
+        pred = st["pred"]
+        mesh = "(2, 2)" if arch == XARCH else "(16, 16)"
+        print(f"[sharded] (a) {arch}{' reduced' if arch == XARCH else ''} "
+              f"train step as rank 0 of a {mesh} mesh under the fake group, "
+              f"f32 masters + bf16 compute: per_device_dot_flops traced "
+              f"{pred['dot_flops']:.0f} == counted over the real step "
+              f"{st['real']['dot_flops']:.0f}; launches {st['steps']} steps "
+              f"x {json.dumps(pred['kernel_calls'])}; predicted "
+              f"per-device bytes {st['predicted_bytes']:,} (args "
+              f"{pred['mem_argument_bytes']:,} + temp "
+              f"{pred['mem_temp_bytes']:,}; the counter over the real "
+              f"step: temp {st['real']['mem_temp_bytes']:,}) vs measured "
+              f"{st['measured_bytes']:,} (max_memory_allocated "
+              f"{st['max_memory_allocated']:,}): "
+              f"{100 * st['rel_diff']:.2f}% apart (tol "
+              f"{100 * MEM_TOL:.0f}%); collectives the rank would move "
+              f"{pred['collective_bytes']:,.0f} B "
+              f"{json.dumps(pred['coll_counts'])}; trace "
+              f"{st['trace_s']:.1f} s")
+        print(f"[sharded] (a) {arch} rank 0 step {st['step_ms']:.3f} ms, "
+              f"compute only (the fake group moves no bytes); with the "
+              f"flash backward unchunked {st['step_ms_whole']:.3f} ms, "
+              f"{st['measured_bytes_whole']:,} bytes | {card_line()}")
+        if st["flash_shape"] is not None:
+            err, ulps, rows, worst = st["flash_check"]
+            B, S, H, KH, hd = st["flash_shape"]
+            print(f"[sharded] (a) {arch} flash at the rank's B={B} S={S} "
+                  f"H={H} KH={KH} hd={hd}: bf16 forward vs plain max abs "
+                  f"{err:.3e} ({ulps:.3g} bf16 ulps, tol 1); f32 "
+                  f"gradients of q, k, v (backward recomputed in chunks "
+                  f"of {rows} rows) vs autograd of the plain route over "
+                  f"the whole batch: worst {worst:.3e} of each leaf's "
+                  f"largest (tol 1e-4)")
+    rec = sh["nccl"]
+    print(f"[sharded] (b) NCCL world of {torch.cuda.device_count()} "
+          f"rank(s), mesh {tuple(rec['mesh'])}, reduced {ARCH} HAR step: "
+          f"loss {rec['loss']:.7f} vs unsharded {rec['loss_unsharded']:.7f}"
+          f" (tol 1e-5); launches {json.dumps(rec['launches'])}")
+    print(f"[sharded] phase 21 launches {json.dumps(la)}; took "
+          f"{time.perf_counter() - t21:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------

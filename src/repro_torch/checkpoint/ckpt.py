@@ -45,20 +45,24 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _map(fn, tree, path: str = ""):
+def _map(fn, tree, path: str = "", is_leaf=None):
     """``tree`` with every leaf ``x`` replaced by ``fn(path, x)``, visiting
     leaves in JAX's flatten order; ``path`` is the leaf's keystr.  ``None``
-    is an empty node, as in JAX."""
+    is an empty node, as in JAX; ``is_leaf`` marks other nodes as
+    leaves."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
     if isinstance(tree, dict):
-        out = {k: _map(fn, tree[k], f"{path}[{k!r}]") for k in sorted(tree)}
+        out = {k: _map(fn, tree[k], f"{path}[{k!r}]", is_leaf)
+               for k in sorted(tree)}
         return {k: out[k] for k in tree}
     if _is_namedtuple(tree):
-        return type(tree)(*[_map(fn, getattr(tree, f), f"{path}.{f}")
-                            for f in tree._fields])
+        return type(tree)(*[_map(fn, getattr(tree, f), f"{path}.{f}",
+                                 is_leaf) for f in tree._fields])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, x, f"{path}[{i}]")
+        return type(tree)(_map(fn, x, f"{path}[{i}]", is_leaf)
                           for i, x in enumerate(tree))
     return fn(path, tree)
 
@@ -71,6 +75,9 @@ def keystr_leaves(tree) -> List[Tuple[str, Any]]:
 
 
 def _to_numpy(x) -> np.ndarray:
+    from repro_torch.dist import spmd
+    if spmd.is_dist(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, int):
@@ -89,10 +96,16 @@ def save(path: str, tree, step: Optional[int] = None,
     """Atomically write ``path``.npz (arrays) then ``path``.json
     (manifest).  ``extra`` is a JSON-serializable dict stored in the
     manifest (e.g. controller tables, counters); read it back with
-    :func:`load_manifest`."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    :func:`load_manifest`.  DTensor leaves are written whole, in the
+    reference's format: every rank of their mesh calls ``save`` (the
+    gather is a collective) and rank 0 writes."""
+    from repro_torch.dist import spmd
     flat = keystr_leaves(tree)
     arrays = {f"arr_{i}": _to_numpy(v) for i, (_, v) in enumerate(flat)}
+    if any(spmd.is_dist(v) for _, v in flat) \
+            and torch.distributed.get_rank() != 0:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     manifest: Dict[str, Any] = {"keys": [k for k, _ in flat], "step": step}
     if extra is not None:
         manifest["extra"] = extra
@@ -117,10 +130,14 @@ def load_manifest(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def load(path: str, like, device="cuda"):
+def load(path: str, like, device="cuda", placements=None, mesh=None):
     """Restore into the structure of ``like`` (a template tree): tensor
     leaves come back as tensors of the template leaf's dtype on ``device``,
-    Python int/float leaves as Python numbers.
+    Python int/float leaves as Python numbers.  With ``placements`` (a
+    tree like ``like`` of placement tuples, ``partition.to_placements``)
+    and the ``DeviceMesh`` ``mesh``, each tensor leaf comes back as a
+    DTensor so placed, each rank keeping its shard of the saved array:
+    the reference's ``shardings=``.
 
     Raises ``FileNotFoundError`` when the manifest's array file is absent
     and ``ValueError`` when it is torn/unreadable — callers that keep a
@@ -152,9 +169,23 @@ def load(path: str, like, device="cuda"):
     if missing:
         raise KeyError(f"template keys missing from checkpoint: {missing}")
 
+    placed = {}
+    if placements is not None:
+        from torch.distributed.tensor import Placement
+        _map(lambda k, p: placed.__setitem__(k, p), placements,
+             is_leaf=lambda x: isinstance(x, tuple) and bool(x) and all(
+                 isinstance(p, Placement) for p in x))
+
     def leaf(key, tmpl):
         x = by_key[key]
         if isinstance(tmpl, torch.Tensor):
+            if key in placed:
+                from repro_torch.dist import spmd
+                pl = placed[key]
+                part = np.ascontiguousarray(
+                    x[spmd.local_slices(x.shape, pl, mesh)])
+                return spmd.wrap(torch.from_numpy(part).to(
+                    device=device, dtype=tmpl.dtype), mesh, pl, x.shape)
             return torch.from_numpy(np.array(x)).to(device=device,
                                                      dtype=tmpl.dtype)
         return type(tmpl)(x)            # a Python int or float

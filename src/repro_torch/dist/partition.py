@@ -18,6 +18,13 @@ the reference's ``PartitionSpec``; a 0-d or 1-d leaf gets ``()``.
 Every rule is guarded by divisibility, so any mesh and arch give a valid,
 possibly partly replicated, spec.  On one card (every axis of size 1)
 every spec is all None: full replication.
+
+The mesh may be a ``LogicalMesh`` or a ``DeviceMesh``.  On a
+``DeviceMesh``, :func:`to_placements` is the reference's
+``to_shardings``: a spec becomes DTensor placements, one a mesh dim.
+:func:`distribute_tree` places a tree of tensors by its specs, and
+:func:`init_local` draws a model's params straight into each rank's
+shards.
 """
 from __future__ import annotations
 
@@ -25,13 +32,125 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
+from torch.utils._pytree import tree_flatten_with_path
 
 _EMBED_KEYS = ("embed", "unembed", "table", "head")
 
 
 def _axis_sizes(mesh) -> Dict[str, int]:
-    return dict(zip(mesh.axis_names, mesh.axis_sizes))
+    from repro_torch.launch.mesh import logical
+    return logical(mesh).shape
+
+
+def is_spec(x) -> bool:
+    """True for a spec: a plain tuple of None, axis names or tuples of
+    them."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def spec_placements(spec, dmesh) -> tuple:
+    """One spec as DTensor placements on ``dmesh``: ``Shard(d)`` on the
+    mesh dim of each axis named at dim ``d`` (a tuple of axes nests them,
+    the first outermost, which must be mesh order), ``Replicate()`` on
+    every other mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(dmesh.mesh_dim_names)
+    pl = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = [a for a in (entry if isinstance(entry, tuple) else (entry,))
+                if a is not None]
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
+                             f"in mesh order {names}")
+        for i in idx:
+            pl[i] = Shard(d)
+    return tuple(pl)
+
+
+def to_placements(spec_tree, dmesh):
+    """Spec tree -> tree of placement tuples (the reference's
+    ``to_shardings``)."""
+    return tree_map(lambda s: spec_placements(s, dmesh), spec_tree,
+                    is_leaf=is_spec)
+
+
+def _paired(tree, specs):
+    """(tensor leaves of ``tree``, their specs, the tree's structure),
+    each leaf paired with the spec at its key path (the two trees' dicts
+    may list their keys in other orders)."""
+    flat, struct = tree_flatten_with_path(tree)
+    by_path = {tuple(map(str, p)): s for p, s in
+               tree_flatten_with_path(specs, is_leaf=is_spec)[0]}
+    if len(flat) != len(by_path):
+        raise ValueError(f"{len(flat)} leaves but {len(by_path)} specs")
+    return ([x for _, x in flat],
+            [by_path[tuple(map(str, p))] for p, _ in flat], struct)
+
+
+def distribute_tree(tree, specs, dmesh):
+    """Every tensor leaf of ``tree`` (the same on every rank) as a DTensor
+    placed by its spec; each rank keeps only its shard."""
+    from repro_torch.dist import spmd
+    leaves, spec_leaves, struct = _paired(tree, specs)
+    out = []
+    for x, s in zip(leaves, spec_leaves):
+        pl = spec_placements(s, dmesh)
+        out.append(spmd.wrap(x[spmd.local_slices(x.shape, pl, dmesh)]
+                             .contiguous(), dmesh, pl, x.shape))
+    return tree_unflatten(out, struct)
+
+
+def empty_placed(tree, specs, dmesh, device, fill: bool = True):
+    """Tensors of ``tree``'s shapes and dtypes (meta tensors), placed by
+    ``specs``: each rank allocates only its shard.  With ``fill`` they are
+    fresh caches, every float leaf zero and every int leaf (``slot_pos``)
+    -1, the values ``transformer.init_cache`` starts from; without, they
+    are left uninitialized."""
+    from repro_torch.dist import spmd
+    leaves, spec_leaves, struct = _paired(tree, specs)
+    out = []
+    for x, s in zip(leaves, spec_leaves):
+        pl = spec_placements(s, dmesh)
+        shape = [sl.stop - sl.start for sl in
+                 spmd.local_slices(x.shape, pl, dmesh)]
+        t = torch.empty(shape, dtype=x.dtype, device=device)
+        if fill:
+            t.fill_(0 if x.is_floating_point() else -1)
+        out.append(spmd.wrap(t, dmesh, pl, x.shape))
+    return tree_unflatten(out, struct)
+
+
+def gather_tree(tree):
+    """Every DTensor leaf of ``tree`` as the full plain tensor (a
+    collective: every rank calls it)."""
+    from repro_torch.dist import spmd
+    return tree_map(lambda x: x.full_tensor() if spmd.is_dist(x) else x,
+                    tree)
+
+
+def init_local(seed: int, cfg, specs, dmesh, device="cuda"):
+    """The params ``transformer.init_model(seed, cfg, device)`` draws, as
+    DTensors placed by ``specs``, with only this rank's shards ever kept:
+    the draws run one layer at a time in ``init_model``'s order, and each
+    layer's shard is cut from it before the next is drawn.  At qwen2-72b
+    a layer is 3.5 GB of f32 where the whole tree is 291 GB."""
+    from repro_torch.models import transformer as T
+    from repro_torch.dist import spmd
+    shapes = T.init_abstract(cfg)
+    leaves, spec_leaves, struct = _paired(shapes, specs)
+    pls = [spec_placements(s, dmesh) for s in spec_leaves]
+    keys = [tuple(str(getattr(k, "key", k)) for k in path) for path, _ in
+            tree_flatten_with_path(shapes)[0]]
+    cuts = {k: spmd.local_slices(x.shape, p, dmesh)
+            for k, x, p in zip(keys, leaves, pls)}
+    local = T.init_model(seed, cfg, device, where=cuts.__getitem__)
+    flat = [spmd.wrap(t.contiguous(), dmesh, p, x.shape) for t, p, x in
+            zip(tree_flatten(local)[0], pls, leaves)]
+    return tree_unflatten(flat, struct)
 
 
 def _map_path(fn, tree, path: Tuple[str, ...] = ()):

@@ -224,8 +224,26 @@ def _grads(ctx, fn, inputs, outs_grads):
     return tuple(next(got, None) if n else None for n in need)
 
 
+# the f32 scores one row chunk of the flash backward's plain recompute may
+# materialize: rows of the batch (independent in attention) are recomputed
+# and differentiated in chunks under this bound, in at most
+# BACKWARD_CHUNKS chunks (each costs its ops' host issue)
+BACKWARD_SCORE_BYTES = 256 << 20
+BACKWARD_CHUNKS = 16
+
+
+def backward_rows(B: int, H: int, Sq: int, Skv: int) -> int:
+    """Batch rows a chunk of the flash backward's recompute (B: none)."""
+    return min(B, max(1, BACKWARD_SCORE_BYTES // (H * Sq * Skv * 4),
+                      -(-B // BACKWARD_CHUNKS)))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel forward; ``plain``'s gradient backward."""
+    """The flash kernel forward; ``plain``'s gradient backward, recomputed
+    over chunks of the batch rows whose f32 scores stay within
+    ``BACKWARD_SCORE_BYTES`` where ``BACKWARD_CHUNKS`` chunks allow (the
+    plain route materializes (H, Sq, Skv) scores a row, several times
+    over)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, plain):
@@ -247,7 +265,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _grads(ctx, ctx.plain, ctx.saved_tensors, (g,)) + (None,) * 5
+        q, k, v = ctx.saved_tensors
+        B, Sq, H, _ = q.shape
+        n = backward_rows(B, H, Sq, k.shape[1])
+        if n == B:
+            return _grads(ctx, ctx.plain, (q, k, v), (g,)) + (None,) * 5
+        parts = [_grads(ctx, ctx.plain, (q[i:i + n], k[i:i + n],
+                                         v[i:i + n]), (g[i:i + n],))
+                 for i in range(0, B, n)]
+        return tuple(None if p[0] is None else torch.cat(p, 0)
+                     for p in zip(*parts)) + (None,) * 5
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,

@@ -10,11 +10,15 @@
 # traces the card's program: the hand-written kernels are recorded in
 # place of their launches, with their bytes and FLOPs from
 # ``kernels/cost.py``; ``--device cpu`` traces the plain versions.  The
-# counts are the whole step on one card.  The mesh (``launch/mesh.py``)
-# gives the chip count and, through ``dist/partition.py``'s specs, the
-# argument bytes a chip of it would hold; the per-device collectives,
-# temporaries and FLOPs of an SPMD program on that mesh are not traced and
-# are written as null.
+# ``hlo_*`` and ``mem_*`` counts are the whole step on one card.  The mesh
+# (``launch/mesh.py``) gives the chip count and, through
+# ``dist/partition.py``'s specs, the argument bytes a chip of it would
+# hold.  The reference reads its per-device fields from the SPMD program
+# compiled for the mesh; here the process joins a ``fake`` process group
+# of the mesh's size as rank 0, builds the sharded step on a DeviceMesh
+# and traces that rank's program on fake shards: ``per_device_*`` and
+# ``cross_pod_bytes`` are rank 0's (``per_device_scope``), the collectives'
+# bytes those it would move (the fake group moves none).
 #
 # Usage:
 #   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \
@@ -23,6 +27,7 @@
 #       --shape train_4k --mesh single --save-hlo artifacts/hlo
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -33,20 +38,50 @@ import torch
 from repro_torch.configs import (ARCHS, INPUT_SHAPES, get_config,
                                  long_context_window, shape_skips)
 from repro_torch.configs.base import TrainConfig
+from repro_torch.dist import partition
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.utils import tree_leaves
 
-# the fields only an SPMD program on the production mesh could give
+# the fields a rank's program on the production mesh gives
 SPMD_ONLY = ("per_device_dot_flops", "per_device_collective_bytes",
              "per_device_temp_bytes")
 
 
-def _is_spec(x) -> bool:
-    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
-        e is None or isinstance(e, (str, tuple)) for e in x)
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a ``fake`` process group of ``n`` ranks
+    for the body (one process group at a time: an initialized one is
+    refused), destroyed after."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a rank trace needs its own process group; one "
+                           "is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_trace(mode: str, build, mesh, device: str = "cuda") -> dict:
+    """Rank 0's program of a sharded step on ``mesh``: the process joins
+    a fake group of ``mesh.size`` ranks, ``build(dmesh)`` makes the step
+    on its DeviceMesh and the rank's shards are traced
+    (``hlo_analysis.trace``)."""
+    from repro_torch.launch.steps import place_abstract
+    dev, _ = hlo_analysis.fake_device(device)
+    with fake_world(mesh.size):
+        dmesh = mesh_lib.device_mesh(mesh, dev)
+        fn, args = build(dmesh)
+        return hlo_analysis.trace(
+            fn, args, device,
+            place=lambda a, d: place_abstract(mode, fn, a, dmesh, d),
+            dmesh=dmesh)
 
 
 def sharded_bytes(tree, specs, mesh) -> int:
@@ -54,7 +89,7 @@ def sharded_bytes(tree, specs, mesh) -> int:
     (one spec a leaf, in the tree's order)."""
     sizes = mesh.shape
     leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
-    spec_leaves = tree_leaves(specs, is_leaf=_is_spec)
+    spec_leaves = tree_leaves(specs, is_leaf=partition.is_spec)
     if len(leaves) != len(spec_leaves):
         raise ValueError(f"{len(leaves)} leaves but {len(spec_leaves)} "
                          "specs")
@@ -116,17 +151,21 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
         rec["window_override"] = window
 
     mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
-    if shape.mode == "train":
-        fn, args = make_train_step(cfg, mesh, shape,
+
+    def build(m):
+        if shape.mode == "train":
+            return make_train_step(cfg, m, shape,
                                    TrainConfig(microbatches=microbatches),
-                                   lgr=lgr, moe_spec=moe_spec)
-    elif shape.mode == "prefill":
-        fn, args = make_prefill_step(cfg, mesh, shape, window)
-    else:
-        fn, args = make_serve_step(cfg, mesh, shape, window,
-                                   cache_layout=cache_layout,
-                                   params_fsdp=serve_fsdp,
-                                   per_layer_cache=per_layer_cache)
+                                   lgr=lgr, moe_spec=moe_spec,
+                                   act_sharding=act_sharding)
+        if shape.mode == "prefill":
+            return make_prefill_step(cfg, m, shape, window,
+                                     act_sharding=act_sharding)
+        return make_serve_step(cfg, m, shape, window,
+                               cache_layout=cache_layout,
+                               params_fsdp=serve_fsdp,
+                               per_layer_cache=per_layer_cache)
+    fn, args = build(mesh)
     res = hlo_analysis.trace(fn, args, device)
     hl = res["counts"]
     if save_hlo:
@@ -153,11 +192,34 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
         "mem_alias_bytes": hl["mem_alias_bytes"],
         "mem_argument_bytes_per_device": _per_device_args(
             shape.mode, fn, args, mesh),
-        **{k: None for k in SPMD_ONLY},
     })
     # live bytes: the arguments + the peak above them (outputs included)
     rec["mem_per_device_bytes"] = (hl["mem_argument_bytes"]
                                    + hl["mem_temp_bytes"])
+    rk = rank_trace(shape.mode, build, mesh, device)
+    pd = rk["counts"]
+    if save_hlo:
+        hlo_analysis.save_trace(rk["trace"],
+                                save_hlo.replace(".hlo.gz", "_rank0.hlo.gz"))
+    rec.update({
+        "per_device_scope": "rank 0 of the mesh",
+        "per_device_trace_s": round(rk["seconds"], 1),
+        "per_device_dot_flops": pd["dot_flops"],
+        "per_device_collective_bytes": pd["collective_bytes"],
+        "per_device_temp_bytes": pd["mem_temp_bytes"],
+        "per_device_argument_bytes": pd["mem_argument_bytes"],
+        "per_device_coll_by_op": pd["coll_by_op"],
+        "per_device_coll_counts": pd["coll_counts"],
+        "per_device_kernel_calls": pd["kernel_calls"],
+        "per_device_kernel_flops": pd["kernel_flops"],
+        "cross_pod_bytes": pd["cross_pod_bytes"],
+    })
+    # rank 0's live bytes, and how many times over the mesh computes the
+    # whole step's products (1.0: no product is computed twice)
+    rec["per_device_mem_bytes"] = (pd["mem_argument_bytes"]
+                                   + pd["mem_temp_bytes"])
+    rec["dot_redundancy"] = (pd["dot_flops"] * mesh.size / hl["dot_flops"]
+                             if hl["dot_flops"] else None)
     return rec
 
 
@@ -269,7 +331,15 @@ def main(argv=None):
                           f"GiB dotTF={rec['hlo_dot_flops']/1e12:.2f} "
                           f"kernelTF="
                           f"{sum(rec['kernel_flops'].values())/1e12:.2f} "
-                          f"collGB={rec['collective_bytes']/2**30:.3f}")
+                          f"collGB={rec['collective_bytes']/2**30:.3f} "
+                          f"| rank0 mem="
+                          f"{rec['per_device_mem_bytes']/2**30:.2f}GiB "
+                          f"dotTF={rec['per_device_dot_flops']/1e12:.3f} "
+                          f"collGB="
+                          f"{rec['per_device_collective_bytes']/2**30:.3f} "
+                          f"podGB={rec['cross_pod_bytes']/2**30:.3f} "
+                          f"x{rec['dot_redundancy'] or 0:.3f} "
+                          f"trace={rec['per_device_trace_s']}s")
                 elif rec["status"] == "skip":
                     skipped += 1
                     print(f"[skip] {tag}: {rec['reason']}")

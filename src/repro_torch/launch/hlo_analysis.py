@@ -18,7 +18,10 @@ computes every count from the trace alone, so a saved trace
                          unfused traffic, kernels' own excluded
 * ``collective_bytes`` — result bytes of c10d and functional collectives,
                          also by op (``coll_by_op``, ``coll_counts``); 0 on
-                         one card, as is ``cross_pod_bytes``
+                         one card
+* ``cross_pod_bytes``  — those of them whose process group spans the
+                         ``pod`` mesh axis (the reference's
+                         ``crosses_pod``)
 * ``kernel_flops`` / ``kernel_bytes`` — by kernel name, each hand-written
                          kernel call's operations and bytes
                          (``kernels/cost.py``): the aten counts do not see
@@ -31,14 +34,34 @@ computes every count from the trace alone, so a saved trace
                          the arguments, each storage followed from the op
                          that allocates it until it is freed
 
+A sharded step (DTensor arguments, ``launch/steps.py`` on a
+``DeviceMesh``) is counted on one rank: the counter lets DTensor handle
+each op and records the local ops and the functional collectives it
+issues, with their local shapes.  DTensor's sharding propagation runs
+ops of its own on fake tensors of its own; those are not the rank's
+program and are left out, as are the collectives' ``wait_tensor`` and
+``_wrap_tensor_autograd`` wrappers (no data moves).  On fake tensors
+those wrappers return a result under a storage object of its own, where
+a real wait returns its argument: the counter counts such a result as
+its argument's storage, freed with the last of the two (counted apart,
+a gathered buffer was counted twice, for as long as the trace held
+either).  DTensor's all-to-all (``_dtensor.shard_dim_alltoall``) returns
+on fake tensors a view into the concatenation of every rank's input;
+its result is counted at its own bytes, as the card allocates it.  Under the ``fake``
+process group (one process standing for one rank of a large mesh) the
+collectives move nothing, so such a trace measures the rank's compute,
+memory and the bytes it would move, not the time its communication takes.
+
 Known limitations: non-dot FLOPs are not counted, as in the reference;
 allocations inside one aten kernel (a library's workspace) are not seen.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import re
+import sys
 import time
 import weakref
 from typing import Dict, List
@@ -80,7 +103,8 @@ _CONTRACTIONS = {
 _FREE_OPS = {"aten.empty", "aten.empty_strided", "aten.empty_like",
              "aten.new_empty", "aten.new_empty_strided", "aten.detach",
              "aten.alias", "aten._unsafe_view", "aten.lift_fresh",
-             "aten.set_", "aten.resize_"}
+             "aten.set_", "aten.resize_", "_c10d_functional.wait_tensor",
+             "_c10d_functional._wrap_tensor_autograd"}
 
 _COLLECTIVES = {
     "all_reduce": "all-reduce", "allreduce_": "all-reduce",
@@ -95,6 +119,14 @@ _COLLECTIVES = {
     "broadcast_": "broadcast",
 }
 _COLL_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+# ops whose result is their argument's data under a storage object of its
+# own on fake tensors (a real wait returns its argument): one allocation
+_ALIAS_OPS = {"_c10d_functional.wait_tensor",
+              "_c10d_functional._wrap_tensor_autograd"}
+# ops whose fake result is a view into a buffer the group's size times
+# larger (a concatenation of every rank's input), where the card's result
+# is a buffer of its own: counted at the result's bytes
+_RESULT_SIZED_OPS = {"_dtensor.shard_dim_alltoall"}
 
 
 def _shapes(text: str):
@@ -122,7 +154,31 @@ def spec(t: torch.Tensor) -> str:
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    """The tensor leaves of ``tree``, a DTensor as its local tensor."""
+    from torch.distributed.tensor import DTensor
+    return [x._local_tensor if isinstance(x, DTensor) else x
+            for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _in_propagation() -> bool:
+    """True while DTensor's sharding propagator runs an op on fake global
+    tensors of its own to learn an output's shape: not the rank's
+    program."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith("_sharding_prop.py"):
+            return True
+        f = f.f_back
+    return False
+
+
+def _group_name(args) -> str:
+    """The process-group name a functional collective's arguments carry
+    (its last string argument)."""
+    for a in reversed(args):
+        if isinstance(a, str):
+            return a
+    return ""
 
 
 class OpCounter(TorchDispatchMode):
@@ -132,14 +188,23 @@ class OpCounter(TorchDispatchMode):
     the plain versions.  Use :meth:`watch` on the step's arguments before
     the step and :meth:`finish` on its outputs after it."""
 
-    def __init__(self, card: bool = False):
+    def __init__(self, card: bool = False, fake_mode=None,
+                 pod_groups=()):
         super().__init__()
         self.card = card
+        # the fake mode whose tensors are the traced program's (None: a
+        # run on real tensors); other fake tensors are DTensor's own
+        self.fake_mode = fake_mode
+        # names of the process groups that span the ``pod`` mesh axis
+        self.pod_groups = set(pod_groups)
+        # whether the program runs on DTensors (set by :meth:`watch`)
+        self.sharded = False
         self.events: List[list] = []
         self.args: List[list] = []
         self.outputs: List[list] = []
         self._ids: Dict[int, int] = {}    # id(storage) -> trace id
         self._sizes: Dict[int, int] = {}  # trace id -> bytes
+        self._refs: Dict[int, int] = {}   # trace id -> live storage objects
         self._freed: List[int] = []
         self._next = 0
         self._arg_ids: Dict[int, list] = {}
@@ -158,23 +223,34 @@ class OpCounter(TorchDispatchMode):
     def _on_free(self, key: int, tid: int):
         if self._ids.get(key) == tid:
             del self._ids[key]
-        self._freed.append(tid)
+        self._refs[tid] -= 1
+        if not self._refs[tid]:
+            self._freed.append(tid)
 
-    def _track(self, st) -> tuple:
-        """(trace id, is new) of a storage; a new one is followed until
-        it is freed."""
+    def _follow(self, st, tid: int) -> None:
+        """Count storage object ``st`` under ``tid`` until it is freed;
+        ``tid`` is freed with the last of its objects."""
         key = id(st)
-        tid = self._ids.get(key)
+        self._ids[key] = tid
+        self._refs[tid] = self._refs.get(tid, 0) + 1
+        weakref.finalize(st, self._on_free, key, tid)
+
+    def _track(self, st, nbytes=None) -> tuple:
+        """(trace id, is new) of a storage; a new one (of ``nbytes``, or
+        its own size) is followed until it is freed."""
+        tid = self._ids.get(id(st))
         if tid is not None:
             return tid, False
         tid = self._next
         self._next += 1
-        self._ids[key] = tid
-        self._sizes[tid] = st.nbytes()
-        weakref.finalize(st, self._on_free, key, tid)
+        self._sizes[tid] = st.nbytes() if nbytes is None else nbytes
+        self._follow(st, tid)
         return tid, True
 
     def watch(self, args) -> None:
+        from torch.distributed.tensor import DTensor
+        self.sharded = self.sharded or any(
+            isinstance(x, DTensor) for x in tree_leaves(args))
         for t in _tensors(args):
             tid, new = self._track(t.untyped_storage())
             if new:
@@ -193,32 +269,56 @@ class OpCounter(TorchDispatchMode):
     def record_kernel(self, name: str, flops, nbytes) -> None:
         self.events.append(["kernel", name, int(flops), int(nbytes)])
 
+    def _foreign(self, tensors) -> bool:
+        from torch._subclasses.fake_tensor import FakeTensor
+        return any(isinstance(t, FakeTensor) and t.fake_mode is not
+                   self.fake_mode for t in tensors)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs the op as local ops and collectives, which
+            # come back here
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if func.namespace == "prim":      # metadata queries
             return out
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        if self._foreign(ins) or self._foreign(outs) or (
+                self.sharded and _in_propagation()) or (
+                (ins or outs) and all(t.is_meta for t in ins + outs)):
+            return out
         in_keys = {id(t.untyped_storage()) for t in ins}
         for key in in_keys:
             arg = self._arg_ids.get(self._ids.get(key))
             if arg is not None:
                 arg[2] = 1
         frees, self._freed = self._freed, []
+        name = str(func.overloadpacket)
+        src = self._ids.get(id(ins[0].untyped_storage())) \
+            if name in _ALIAS_OPS and ins else None
         allocs = []
         for t in outs:
             st = t.untyped_storage()
             if id(st) in in_keys:
                 continue
-            tid, new = self._track(st)
+            if src is not None and id(st) not in self._ids:
+                self._follow(st, src)
+                continue
+            tid, new = self._track(
+                st, t.numel() * t.element_size()
+                if name in _RESULT_SIZED_OPS else None)
             if new:
                 allocs.append([tid, self._sizes[tid]])
-        name = str(func.overloadpacket)
         view = bool(getattr(func, "is_view", False))
-        self.events.append(["op", name, [spec(t) for t in ins],
-                            [spec(t) for t in outs], allocs, frees,
-                            int(view)])
+        ev = ["op", name, [spec(t) for t in ins], [spec(t) for t in outs],
+              allocs, frees, int(view)]
+        if func.namespace in _COLL_NAMESPACES and \
+                _group_name(args) in self.pod_groups:
+            ev.append(1)                  # spans the pod axis
+        self.events.append(ev)
         return out
 
     def trace(self) -> dict:
@@ -228,7 +328,7 @@ class OpCounter(TorchDispatchMode):
 
 def analyze(trace: dict) -> Dict:
     """Every count of a trace (see the module docstring)."""
-    dot = traffic = coll = 0.0
+    dot = traffic = coll = pod = 0.0
     coll_by_op: Dict[str, float] = {}
     coll_counts: Dict[str, int] = {}
     kflops: Dict[str, int] = {}
@@ -246,7 +346,7 @@ def analyze(trace: dict) -> Dict:
             kbytes[name] = kbytes.get(name, 0) + nb
             kcalls[name] = kcalls.get(name, 0) + 1
             continue
-        _, name, ins, outs, allocs, frees, view = ev
+        _, name, ins, outs, allocs, frees, view = ev[:7]
         n_ops += 1
         for tid in frees:
             live -= sizes.pop(tid, 0)
@@ -270,10 +370,12 @@ def analyze(trace: dict) -> Dict:
             coll += b
             coll_by_op[base] = coll_by_op.get(base, 0.0) + b
             coll_counts[base] = coll_counts.get(base, 0) + 1
+            if len(ev) > 7 and ev[7]:
+                pod += b
     out_ids = {tid: b for tid, b in trace["outputs"]}
     return {
         "dot_flops": dot, "traffic_bytes": traffic,
-        "collective_bytes": coll, "cross_pod_bytes": 0.0,
+        "collective_bytes": coll, "cross_pod_bytes": pod,
         "coll_by_op": coll_by_op, "coll_counts": coll_counts,
         "kernel_flops": kflops, "kernel_bytes": kbytes,
         "kernel_calls": kcalls, "n_ops": n_ops,
@@ -309,14 +411,26 @@ def fake_device(device: str) -> tuple:
     return ("cuda" if torch.backends.cuda.is_built() else "cpu"), True
 
 
-def trace(fn, args, device: str = "cuda") -> dict:
+def pod_groups(dmesh) -> tuple:
+    """Names of the process groups of ``dmesh`` that span its ``pod``
+    axis (none without one)."""
+    if dmesh is None or "pod" not in dmesh.mesh_dim_names:
+        return ()
+    return (dmesh.get_group("pod").group_name,)
+
+
+def trace(fn, args, device: str = "cuda", place=None, dmesh=None) -> dict:
     """Run ``fn(*args)`` once on fake tensors: every meta leaf of ``args``
     becomes a fake tensor of its shape and dtype on the trace's device
     (:func:`fake_device`), every real one a fake tensor on its own device
-    that shares a storage where the real ones do.  Returns the op
-    counter's trace, ``analyze``'s counts under ``"counts"``,
-    ``FlopCounterMode``'s total under ``"flop_counter"`` (its own
-    definition of a FLOP) and the seconds the trace took."""
+    that shares a storage where the real ones do.  ``place`` (a sharded
+    step on the ``DeviceMesh`` ``dmesh``) turns those arguments into the
+    DTensors the step takes, the rank's shards fake, and the trace is
+    then the rank's program.  Returns the op counter's trace,
+    ``analyze``'s counts under ``"counts"``, ``FlopCounterMode``'s total
+    under ``"flop_counter"`` (its own definition of a FLOP; None for a
+    rank's program, where it would see DTensor's global shapes) and the
+    seconds the trace took."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     dev, card = fake_device(device)
@@ -329,9 +443,14 @@ def trace(fn, args, device: str = "cuda") -> dict:
                 return torch.empty_strided(tuple(x.shape), tuple(x.stride()),
                                            dtype=x.dtype, device=dev)
             return mode.from_tensor(x)      # keeps shared storages shared
-        fargs = tree_map(fake, args)
-        flops = FlopCounterMode(display=False)
-        counter = OpCounter(card=card)
+        if place is None:
+            fargs = tree_map(fake, args)
+            flops = FlopCounterMode(display=False)
+        else:
+            fargs = place(args, dev)
+            flops = contextlib.nullcontext()
+        counter = OpCounter(card=card, fake_mode=mode,
+                            pod_groups=pod_groups(dmesh))
         counter.watch(fargs)
         with flops, counter:
             out = fn(*fargs)
@@ -339,5 +458,6 @@ def trace(fn, args, device: str = "cuda") -> dict:
         del out
     tr = counter.trace()
     return {"trace": tr, "counts": analyze(tr),
-            "flop_counter": flops.get_total_flops(),
+            "flop_counter": None if place is not None
+            else flops.get_total_flops(),
             "seconds": time.perf_counter() - t0}

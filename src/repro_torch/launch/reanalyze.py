@@ -6,7 +6,9 @@ again (port of ``repro/launch/reanalyze.py``).
       --dryrun artifacts/dryrun --hlo artifacts/hlo
 
 ``--hlo`` is the directory that ``dryrun.py --save-hlo`` wrote, one
-``ARCH_SHAPE_MESH.hlo.gz`` trace a cell.
+``ARCH_SHAPE_MESH.hlo.gz`` trace a cell (the whole step) and beside it
+``ARCH_SHAPE_MESH_rank0.hlo.gz`` (rank 0's program, the ``per_device_*``
+fields and ``cross_pod_bytes``).
 """
 from __future__ import annotations
 
@@ -19,14 +21,23 @@ from repro_torch.launch.hlo_analysis import analyze, load_trace
 
 # record key -> the counter's key
 FIELDS = {"hlo_dot_flops": "dot_flops", "hlo_traffic_bytes": "traffic_bytes",
-          "collective_bytes": "collective_bytes",
-          "cross_pod_bytes": "cross_pod_bytes", "coll_by_op": "coll_by_op",
+          "collective_bytes": "collective_bytes", "coll_by_op": "coll_by_op",
           "coll_counts": "coll_counts", "kernel_flops": "kernel_flops",
           "kernel_bytes": "kernel_bytes", "kernel_calls": "kernel_calls",
           "mem_argument_bytes": "mem_argument_bytes",
           "mem_output_bytes": "mem_output_bytes",
           "mem_temp_bytes": "mem_temp_bytes",
           "mem_alias_bytes": "mem_alias_bytes"}
+# the same for rank 0's trace
+RANK_FIELDS = {"per_device_dot_flops": "dot_flops",
+               "per_device_collective_bytes": "collective_bytes",
+               "per_device_temp_bytes": "mem_temp_bytes",
+               "per_device_argument_bytes": "mem_argument_bytes",
+               "per_device_coll_by_op": "coll_by_op",
+               "per_device_coll_counts": "coll_counts",
+               "per_device_kernel_calls": "kernel_calls",
+               "per_device_kernel_flops": "kernel_flops",
+               "cross_pod_bytes": "cross_pod_bytes"}
 
 
 def main(argv=None):
@@ -49,6 +60,15 @@ def main(argv=None):
         rec.update({k: hl[v] for k, v in FIELDS.items()})
         rec["mem_per_device_bytes"] = (hl["mem_argument_bytes"]
                                        + hl["mem_temp_bytes"])
+        rpath = hpath.replace(".hlo.gz", "_rank0.hlo.gz")
+        if os.path.exists(rpath):
+            pd = analyze(load_trace(rpath))
+            rec.update({k: pd[v] for k, v in RANK_FIELDS.items()})
+            rec["per_device_mem_bytes"] = (pd["mem_argument_bytes"]
+                                           + pd["mem_temp_bytes"])
+            rec["dot_redundancy"] = (
+                pd["dot_flops"] * rec["chips"] / hl["dot_flops"]
+                if hl["dot_flops"] else None)
         with open(jpath, "w") as f:
             json.dump(rec, f, indent=1)
         n += 1

@@ -4,9 +4,15 @@ The LM half: ``input_specs``, ``abstract_train_state``,
 ``abstract_cache`` (meta tensors in place of ``ShapeDtypeStruct``) and the
 train / prefill / serve step builders, each returning ``(fn,
 example_args)``.  The reference's builders take a mesh and jit the step
-with its shardings; here the mesh is optional (``launch/mesh.py``), its
-specs (``dist/partition.py``) ride on ``fn.specs``, and on one card they
-are all replicated, so the step is the plain eager function.
+with its shardings.  Here the mesh is optional (``launch/mesh.py``) and
+its specs (``dist/partition.py``) ride on ``fn.specs``.  With no mesh, or
+a ``LogicalMesh`` (specs only, no process group), the step is the plain
+eager function on one card.  With a ``DeviceMesh`` it is the sharded
+step: it takes DTensors placed by ``fn.placements`` (the reference's
+``in_shardings``), runs with the activation and MoE sharding hooks set
+(:func:`_act_spec`), and returns params and Adam state in their
+placements, the loss and logits replicated and caches in theirs (the
+reference's ``out_shardings``).
 
 The DRL and serving half (``make_communicator``, ``make_drl_train_step``,
 the async factories ``make_experience_pipeline``,
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig
 from repro_torch.dist import partition
-from repro_torch.launch.mesh import batch_axes
+from repro_torch.launch.mesh import batch_axes, is_device_mesh
 
 
 # ----------------------------------------------------------- input specs ---
@@ -72,10 +78,77 @@ def abstract_cache(cfg: ModelConfig, shape: InputShape,
                         window_override, device="meta", per_layer=per_layer)
 
 
+# ------------------------------------------------------------- shardings ---
+def _act_spec(mesh, mode: str, kind: str = "dmodel"):
+    """The hidden state's spec at every layer boundary (the reference's
+    ``_act_spec``): batch over the batch axes and ``d_model`` over
+    ``model`` (``"dmodel"``), the sequence over ``model`` (``"seq"``), or
+    none (``"none"``, and every decode step)."""
+    bt = batch_axes(mesh)
+    ax = bt if len(bt) > 1 else bt[0]
+    if kind == "none" or mode == "decode":
+        return None
+    if kind == "seq":
+        return (ax, "model", None)
+    return (ax, None, "model")
+
+
+def _group_axis(mesh, batch: Optional[int] = None):
+    """The MoE hook's group axis: the batch axes, or None when they do not
+    divide ``batch``."""
+    from repro_torch.launch.mesh import logical
+    bt = batch_axes(mesh)
+    n = 1
+    for a in bt:
+        n *= logical(mesh).shape[a]
+    if batch is not None and batch % n:
+        return None
+    return bt if len(bt) > 1 else bt[0]
+
+
+@contextlib.contextmanager
+def _hooks(act_spec, group_axis):
+    """The model's sharding hooks set for one sharded step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import moe_sharding
+    with T.activation_sharding(act_spec), moe_sharding(group_axis):
+        yield
+
+
+def _placements(specs: dict, dmesh) -> dict:
+    return {k: partition.to_placements(v, dmesh) for k, v in specs.items()}
+
+
+def _replicated(x):
+    """A DTensor replicated on every rank (the reference's ``P()``
+    out-sharding); a plain tensor as it is."""
+    from repro_torch.dist import spmd
+    if not spmd.is_dist(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return spmd.layout(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def _microbatch(x, i: int, M: int):
+    """Microbatch ``i`` of ``M``: rows ``i * B/M`` on; on a DTensor, the
+    ``i``-th slice of every rank's own rows (one split of the global
+    batch as good as another: each microbatch's gradient is divided by M
+    and summed)."""
+    from repro_torch.dist import spmd
+    if not spmd.is_dist(x):
+        n = x.shape[0] // M
+        return x[i * n:(i + 1) * n]
+    loc = x.to_local()
+    n = loc.shape[0] // M
+    return spmd.wrap(loc[i * n:(i + 1) * n], x.device_mesh, x.placements,
+                     (x.shape[0] // M,) + tuple(x.shape[1:]))
+
+
 def make_train_step(cfg: ModelConfig, mesh=None,
                     shape: Optional[InputShape] = None,
                     train_cfg: TrainConfig = TrainConfig(),
-                    lgr: str = "har", moe_spec: str = "contract"):
+                    lgr: str = "har", moe_spec: str = "contract",
+                    act_sharding: str = "dmodel"):
     """The LM training step ``fn(params, opt_state, batch) -> (params,
     opt_state, {"loss"})``: the gradient of ``loss_fn`` (``remat`` from
     ``train_cfg``), accumulated over ``train_cfg.microbatches`` splits of
@@ -85,13 +158,18 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     layer casts its weights to the activation type.  Returns ``(fn,
     (params, opt_state, batch))`` as meta tensors (``shape`` needed for the
     batch); ``fn.specs`` holds the mesh's param and batch specs (``lgr ==
-    "har"``: FSDP over ``data``)."""
+    "har"``: FSDP over ``data``).  On a ``DeviceMesh`` the step is the
+    sharded one: ``fn.placements`` places params, Adam moments (as the
+    params) and batch; each gradient is reduced to its param's placement
+    before Adam, and the loss comes back replicated."""
+    from repro_torch.dist import spmd
     from repro_torch.models import transformer as T
     from repro_torch.optim import adam_update
     from repro_torch.utils import tree_flatten, tree_unflatten
     params_sds, opt_sds = abstract_train_state(cfg)
     batch_sds = input_specs(cfg, shape) if shape is not None else None
     M = max(train_cfg.microbatches, 1)
+    sharded = is_device_mesh(mesh)
 
     def value_and_grad(params, batch):
         flat, spec = tree_flatten(params)
@@ -100,9 +178,12 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                          remat=train_cfg.remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
+        if sharded:
+            grads = [spmd.layout(g, p.placements) if spmd.is_dist(g) else g
+                     for g, p in zip(grads, flat)]
         return loss.detach(), tree_unflatten(list(grads), spec)
 
-    def train_step(params, opt_state, batch):
+    def step(params, opt_state, batch):
         if M == 1:
             lval, grads = value_and_grad(params, batch)
         else:
@@ -113,10 +194,9 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                 raise ValueError(f"batch of {B} does not split into {M} "
                                  "microbatches")
             grads = None
-            lval = torch.zeros((), device=opt_state.step.device)
+            lval = 0.0
             for i in range(M):
-                mb = {k: v[i * (B // M):(i + 1) * (B // M)]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, M) for k, v in batch.items()}
                 lv, g = value_and_grad(params, mb)
                 g = [x.float() / M for x in tree_flatten(g)[0]]
                 grads = g if grads is None else \
@@ -128,38 +208,101 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             beta1=train_cfg.beta1, beta2=train_cfg.beta2,
             weight_decay=train_cfg.weight_decay,
             grad_clip=train_cfg.grad_clip)
-        return params, opt_state, {"loss": lval.float()}
+        return params, opt_state, {"loss": _replicated(lval.float())}
 
+    if sharded:
+        act = _act_spec(mesh, "train", act_sharding)
+        group = _group_axis(mesh)
+
+        def train_step(params, opt_state, batch):
+            with _hooks(act, group):
+                return step(params, opt_state, batch)
+    else:
+        train_step = step
     train_step.specs = None if mesh is None else {
         "params": partition.param_specs(params_sds, mesh, fsdp=lgr == "har",
                                         moe_spec=moe_spec),
         "batch": partition.batch_specs(batch_sds or {}, mesh,
                                        batch_axes=batch_axes(mesh))}
+    if sharded:
+        train_step.placements = _placements(train_step.specs, mesh)
     return train_step, (params_sds, opt_sds, batch_sds)
+
+
+def place_abstract(mode: str, fn, args, dmesh, device):
+    """A sharded step's example arguments (meta tensors, as the builders
+    return them) as the DTensors ``fn`` takes, each rank's shards
+    uninitialized on ``device``: what a rank's trace runs on."""
+    from repro_torch.optim import AdamState
+    sp = fn.specs
+
+    def put(tree, specs):
+        return partition.empty_placed(tree, specs, dmesh, device,
+                                      fill=False)
+    if mode == "train":
+        params, opt, batch = args
+        return (put(params, sp["params"]),
+                AdamState(put(opt.step, ()), put(opt.mu, sp["params"]),
+                          put(opt.nu, sp["params"])),
+                put(batch, sp["batch"]))
+    if mode == "prefill":
+        params, batch = args
+        return put(params, sp["params"]), put(batch, sp["batch"])
+    params, cache, token, pos = args
+    tp = put({"token": token, "pos": pos}, sp["batch"])
+    return (put(params, sp["params"]), put(cache, sp["cache"]),
+            tp["token"], tp["pos"])
+
+
+def place_train_state(params, opt_state, specs, dmesh):
+    """Params and Adam state (the same on every rank) placed as a sharded
+    train step takes them: the moments by the param specs, the step
+    replicated."""
+    from repro_torch.optim import AdamState
+    return (partition.distribute_tree(params, specs, dmesh),
+            AdamState(partition.distribute_tree(opt_state.step, (), dmesh),
+                      partition.distribute_tree(opt_state.mu, specs, dmesh),
+                      partition.distribute_tree(opt_state.nu, specs, dmesh)))
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
                       shape: Optional[InputShape] = None,
-                      window_override: Optional[int] = None):
+                      window_override: Optional[int] = None,
+                      act_sharding: str = "dmodel"):
     """``fn(params, batch) -> (last-position logits f32, caches)`` for
-    prompts of ``shape.seq_len``.  Returns ``(fn, (params, batch))``."""
+    prompts of ``shape.seq_len``.  Returns ``(fn, (params, batch))``.  On
+    a ``DeviceMesh`` the caches are made placed by their specs and the
+    logits come back replicated."""
     from repro_torch.models import transformer as T
     params_sds = T.init_abstract(cfg)
     batch_sds = input_specs(cfg, shape)
-
-    @torch.no_grad()
-    def prefill_step(params, batch):
-        logits, caches = T.prefill(params, cfg, batch, shape.seq_len,
-                                   window_override)
-        return logits.float(), caches
-
-    prefill_step.specs = None if mesh is None else {
+    sharded = is_device_mesh(mesh)
+    cache_sds = abstract_cache(cfg, shape, window_override) \
+        if mesh is not None else None
+    specs = None if mesh is None else {
         "params": partition.param_specs(params_sds, mesh, fsdp=False),
         "batch": partition.batch_specs(batch_sds, mesh,
                                        batch_axes=batch_axes(mesh)),
         "cache": partition.cache_specs(
-            abstract_cache(cfg, shape, window_override), mesh,
-            batch_shardable=shape.global_batch > 1)}
+            cache_sds, mesh, batch_shardable=shape.global_batch > 1)}
+    act = _act_spec(mesh, "prefill", act_sharding) if sharded else None
+    group = _group_axis(mesh) if sharded else None
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        caches = None
+        if sharded:
+            dev = next(iter(batch.values())).device
+            caches = partition.empty_placed(cache_sds, specs["cache"],
+                                            mesh, dev)
+        with _hooks(act, group):
+            logits, caches = T.prefill(params, cfg, batch, shape.seq_len,
+                                       window_override, caches=caches)
+        return _replicated(logits.float()), caches
+
+    prefill_step.specs = specs
+    if sharded:
+        prefill_step.placements = _placements(specs, mesh)
     return prefill_step, (params_sds, batch_sds)
 
 
@@ -181,11 +324,15 @@ def make_serve_step(cfg: ModelConfig, mesh=None,
                                per_layer=per_layer_cache)
     tok_sds = input_specs(cfg, shape)
 
+    sharded = is_device_mesh(mesh)
+    group = _group_axis(mesh, shape.global_batch) if sharded else None
+
     @torch.no_grad()
     def serve_step(params, caches, token, pos):
-        logits, caches = T.decode_step(params, cfg, token, pos, caches,
-                                       window_override)
-        return logits.float(), caches
+        with _hooks(None, group):
+            logits, caches = T.decode_step(params, cfg, token, pos, caches,
+                                           window_override)
+        return _replicated(logits.float()), caches
 
     serve_step.specs = None if mesh is None else {
         "params": partition.param_specs(params_sds, mesh, fsdp=params_fsdp),
@@ -194,6 +341,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None,
             layout=cache_layout),
         "batch": partition.batch_specs(tok_sds, mesh,
                                        batch_axes=batch_axes(mesh))}
+    if sharded:
+        serve_step.placements = _placements(serve_step.specs, mesh)
     return serve_step, (params_sds, cache_sds, tok_sds["token"],
                         tok_sds["pos"])
 

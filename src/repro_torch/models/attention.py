@@ -220,13 +220,65 @@ def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
     ``positions`` must then be ``0..S-1`` in every row (not checked: that
     would cost a host sync).  Returns (out, cache) — caches are updated in
     place.
+
+    On DTensors (a sharded step) everything between the projections runs
+    on each rank's whole heads (``dist/spmd.py::HeadLayout``): the kernel
+    gets local tensors, and a dense cache is written through its local
+    tensors, which the layout matches.
     """
+    from repro_torch.dist import spmd
     B, S, D = x.shape
+    if spmd.is_dist(x):
+        xf = spmd.features(x)
+        q, k, v = (spmd.col(xf, params[n]) for n in ("wq", "wk", "wv"))
+    else:
+        q, k, v = (linear(params[n], x) for n in ("wq", "wk", "wv"))
+    kw = dict(causal=causal, window=window, attn_cap=attn_cap,
+              rope_theta=rope_theta, chunked_threshold=chunked_threshold,
+              use_rope=use_rope, page_table=page_table, head_dim=head_dim)
+    if not spmd.is_dist(q):
+        if positions.ndim == 1:
+            positions = positions[None].expand(B, S)
+        o = _attend(q.reshape(B, S, num_heads, head_dim),
+                    k.reshape(B, S, num_kv_heads, head_dim),
+                    v.reshape(B, S, num_kv_heads, head_dim), positions,
+                    cache, **kw)
+        return linear(params["wo"], o.reshape(B, S, -1)), cache
+    lay = spmd.HeadLayout(q.device_mesh, B, num_heads, num_kv_heads, cache)
+    dm = lay.dmesh
+    ql = spmd.local(q, dm, lay.q_placements())
+    # a rank that meets only some of the gathered kv heads holds a part of
+    # their gradient
+    part = ()
+    if lay.kv_sel != slice(None):
+        part = (lay.mdim,)
+        k = spmd.layout(k, lay.kv_source(k.shape[-1]))
+        v = spmd.layout(v, lay.kv_source(v.shape[-1]))
+    kl = spmd.local(k, dm, lay.kv_placements(), part)
+    vl = spmd.local(v, dm, lay.kv_placements(), part)
     if positions.ndim == 1:
         positions = positions[None].expand(B, S)
-    q = linear(params["wq"], x).reshape(B, S, num_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, S, num_kv_heads, head_dim)
-    v = linear(params["wv"], x).reshape(B, S, num_kv_heads, head_dim)
+    pl = spmd.local(positions, dm, lay.batch_placements())
+    Bl = ql.shape[0]
+    lcache = None if cache is None else type(cache)(
+        *[t.to_local() if spmd.is_dist(t) else t for t in cache])
+    o = _attend(ql.reshape(Bl, S, lay.Hl, head_dim),
+                kl.reshape(Bl, S, -1, head_dim),
+                vl.reshape(Bl, S, -1, head_dim), pl, lcache,
+                kv_sel=lay.kv_sel, **kw)
+    o = spmd.wrap(o.reshape(Bl, S, -1), dm, lay.q_placements(),
+                  (B, S, num_heads * head_dim))
+    return spmd.row(o, params["wo"]), cache
+
+
+def _attend(q, k, v, positions, cache, *, head_dim: int, causal: bool,
+            window, attn_cap, rope_theta: float, chunked_threshold: int,
+            use_rope: bool, page_table, kv_sel=slice(None)):
+    """Attention over q (B, S, H, hd) and k/v (B, S, KH, hd) at positions
+    (B, S), writing ``cache`` in place; returns (B, S, H, hd).  A cache is
+    written with every kv head of k/v, and the query heads meet the kv
+    heads ``kv_sel`` of them (a rank's share, ``spmd.HeadLayout``)."""
+    B, S, num_heads, _ = q.shape
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -243,14 +295,13 @@ def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
                 q[:, 0], cache.k_pages, cache.v_pages, cache.slot_pos,
                 page_table, positions[:, 0].contiguous(), window=window,
                 softcap=attn_cap, scale=scale)
-            out = linear(params["wo"], o.reshape(B, 1, num_heads * head_dim))
-            return out, cache
+            return o[:, None]
         k_all, v_all, kpos = paged_gather(cache, page_table)
     elif cache is not None and S == 1:
         # decode: write this step's k/v into its ring slot, attend over cache
         W = cache.k.shape[1]
         slots = (positions % W).long()                       # (B,1)
-        bidx = torch.arange(B, device=x.device)[:, None]
+        bidx = torch.arange(B, device=q.device)[:, None]
         cache.k.index_put_((bidx, slots), k.to(cache.k.dtype))
         cache.v.index_put_((bidx, slots), v.to(cache.v.dtype))
         cache.slot_pos.index_put_((bidx, slots), positions.to(torch.int32))
@@ -263,7 +314,7 @@ def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
             n = min(S, W)
             p_tail = positions[:, -n:]
             slots = (p_tail % W).long()
-            bidx = torch.arange(B, device=x.device)[:, None]
+            bidx = torch.arange(B, device=q.device)[:, None]
             cache.k.index_put_((bidx, slots), k[:, -n:].to(cache.k.dtype))
             cache.v.index_put_((bidx, slots), v[:, -n:].to(cache.v.dtype))
             cache.slot_pos.index_put_((bidx, slots), p_tail.to(torch.int32))
@@ -274,11 +325,13 @@ def attention(params, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
             pos = torch.arange(S, dtype=torch.int32, device=q.device)[None]
             return route(q, k, v, pos, pos, causal, window, attn_cap, scale)
 
-        o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                softcap=attn_cap, scale=scale, plain=plain)
-        return linear(params["wo"], o.reshape(B, S, -1)), cache
+        if kv_sel != slice(None):
+            k, v = k[:, :, kv_sel].contiguous(), v[:, :, kv_sel].contiguous()
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=attn_cap, scale=scale,
+                                   plain=plain)
 
-    out = _route(S, k_all.shape[1], chunked_threshold)(
+    if kv_sel != slice(None):
+        k_all, v_all = k_all[:, :, kv_sel], v_all[:, :, kv_sel]
+    return _route(S, k_all.shape[1], chunked_threshold)(
         q, k_all, v_all, positions, kpos, causal, window, attn_cap, scale)
-    out = linear(params["wo"], out.reshape(B, S, num_heads * head_dim))
-    return out, cache

@@ -23,6 +23,9 @@ def init_rmsnorm(d: int, device="cpu"):
 
 
 def rms_norm(params, x, eps: float = 1e-6):
+    from repro_torch.dist import spmd
+    if spmd.is_dist(x) and spmd.sharded_dims(x, x.ndim - 1):
+        return spmd.rms_norm_split(params["scale"], x, eps)
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
@@ -96,15 +99,26 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str = "silu"):
 
 
 def mlp(params, x, act: str = "silu"):
+    """On DTensors the input products are column-parallel and the output
+    product row-parallel (``dist/spmd.py``): the result is then a partial
+    sum over ``model`` for the caller to reduce."""
+    from repro_torch.dist import spmd
     dt = x.dtype
-    h = x @ params["wi"].to(dt)
-    if "wg" in params:
-        g = x @ params["wg"].to(dt)
+    if spmd.is_dist(x):
+        x = spmd.features(x)
+        h = spmd.col(x, {"w": params["wi"]})
+        g = spmd.col(x, {"w": params["wg"]}) if "wg" in params else None
+    else:
+        h = x @ params["wi"].to(dt)
+        g = x @ params["wg"].to(dt) if "wg" in params else None
+    if g is not None:
         h = F.silu(g) * h
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
     else:
         h = F.silu(h)
+    if spmd.is_dist(h):
+        return spmd.row(h, {"w": params["wo"]})
     return h @ params["wo"].to(dt)
 
 
@@ -115,7 +129,13 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int):
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    """Rows of the table.  A DTensor table (vocab-parallel over
+    ``model``) is read on each rank's tokens: each rank looks up the rows
+    it holds, zeros elsewhere, and the rows are summed over ``model``."""
+    from repro_torch.dist import spmd
+    if not spmd.is_dist(params["table"]):
+        return params["table"][tokens]
+    return spmd.vocab_lookup(params["table"], tokens)
 
 
 def unembed(params, x):

@@ -18,9 +18,15 @@ Where the port differs in form, not in result:
 * ``.at[].add`` becomes ``scatter_add_``: every kept slot is written
   once, so only the discarded drop row depends on the order of the adds.
 * The reference's sharding hooks (``set_moe_sharding``, ``_constrain``)
-  constrain buffers to a device mesh; on one device they do nothing.
+  constrain the buffers of a sharded step: on DTensors the routing, the
+  scatter into the dispatch buffer and the gather back run on each rank's
+  groups (its batch rows over the group axis), and the expert products
+  run on DTensors redistributed at the reference's five constraint sites.
+  Plain tensors pass the hooks unchanged.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -28,16 +34,52 @@ import torch.nn.functional as F
 from repro_torch.utils import lecun_init
 
 
+# sharding hook (set by a sharded step, like
+# transformer.set_activation_sharding)
+_GROUP_AXIS = None
+_MODEL_AXIS = None
+
+
 def set_moe_sharding(group_axis, model_axis="model"):
-    """The reference's sharding hook (group_axis: the mesh axis the batch
-    dim shards over; model_axis: the one the expert hidden dim shards
-    over), kept with its signature.  One device has no mesh to shard
-    over, so it does nothing."""
+    """group_axis: mesh axis (or tuple) the batch/group dim shards over;
+    model_axis: the axis the expert hidden dim (F) shards over."""
+    global _GROUP_AXIS, _MODEL_AXIS
+    _GROUP_AXIS = group_axis
+    _MODEL_AXIS = model_axis if group_axis is not None else None
+
+
+@contextlib.contextmanager
+def moe_sharding(group_axis, model_axis="model"):
+    """``set_moe_sharding`` for the body, the old hook after."""
+    old = (_GROUP_AXIS, _MODEL_AXIS)
+    set_moe_sharding(group_axis, model_axis)
+    try:
+        yield
+    finally:
+        set_moe_sharding(*old)
 
 
 def _constrain(x, *tail):
-    """The reference's sharding constraint; the identity on one device."""
-    return x
+    """tail entries: None or "model" (the configured model axis).  As in
+    the reference the spec is total: a None dim is replicated.  A plain
+    tensor, or no hook set, passes unchanged."""
+    from repro_torch.dist import spmd
+    if _GROUP_AXIS is None or not spmd.is_dist(x):
+        return x
+    spec = [_GROUP_AXIS] + [(_MODEL_AXIS if t == "model" else t)
+                            for t in tail[:x.ndim - 1]]
+    return spmd.constrain(x, spec)
+
+
+def _group_placements(x):
+    """Placements of (B, ...) DTensor ``x`` with the groups over the hook's
+    group axis (when set and dividing B), everything else replicated."""
+    from repro_torch.dist import spmd
+    dm = x.device_mesh
+    axes = () if _GROUP_AXIS is None else (
+        _GROUP_AXIS if isinstance(_GROUP_AXIS, tuple) else (_GROUP_AXIS,))
+    return spmd.placements(dm, {0: list(spmd.batch_dims(dm, x.shape[0],
+                                                        axes))})
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
@@ -88,37 +130,80 @@ def _route_group(x, logits, top_k: int, capacity: int, num_experts: int):
 
 
 def _dispatch(params, x, logits, num_experts: int, top_k: int,
-              capacity_factor: float):
-    """Capacity-bucketed dispatch over groups = leading dim.  x: (B, S, D),
-    logits: (B, S, E) -> out (B, S, D)."""
-    B, S, D = x.shape
+              capacity_factor: float, experts=None):
+    """Capacity-bucketed dispatch over groups = leading dim.  x: (G, S, D),
+    logits: (G, S, E) -> out (G, S, D).  ``experts(params, buf)`` maps the
+    (G, E, capacity, D) dispatch buffer to the experts' outputs of that
+    shape (:func:`_experts` when None)."""
+    G, S, D = x.shape
     E, k = num_experts, top_k
     dt = x.dtype
     capacity = max(int(S * k / E * capacity_factor), k)
 
     slot, gate, valid = _route(logits, k, capacity, E)
     gate = gate.to(dt)
-    flat_slot = slot.reshape(B, S * k)
+    flat_slot = slot.reshape(G, S * k)
 
     # scatter into each group's (E*capacity + 1) buffer
-    xk = torch.repeat_interleave(x, k, dim=1)                  # (B,S*k,D)
-    idx = flat_slot[..., None].expand(B, S * k, D)
-    buf = torch.zeros((B, E * capacity + 1, D), dtype=dt, device=x.device)
+    xk = torch.repeat_interleave(x, k, dim=1)                  # (G,S*k,D)
+    idx = flat_slot[..., None].expand(G, S * k, D)
+    buf = torch.zeros((G, E * capacity + 1, D), dtype=dt, device=x.device)
     buf.scatter_add_(1, idx, xk)
-    bufe = _constrain(buf[:, :-1].reshape(B, E, capacity, D), None, None,
-                      None)
+    out_buf = (experts or _experts)(
+        params, buf[:, :-1].reshape(G, E, capacity, D))
+    return _combine(out_buf.reshape(G, E * capacity, D), idx, gate, valid,
+                    S, k)
 
-    h = torch.einsum("becd,edf->becf", bufe, params["wi"].to(dt))
-    g = torch.einsum("becd,edf->becf", bufe, params["wg"].to(dt))
-    h = _constrain(F.silu(g) * h, None, None, "model")
-    out_buf = torch.einsum("becf,efd->becd", h, params["wo"].to(dt))
 
-    out_flat = torch.cat([out_buf.reshape(B, E * capacity, D),
-                          torch.zeros((B, 1, D), dtype=dt, device=x.device)],
+def _combine(out_flat, idx, gate, valid, S: int, k: int):
+    """Each token's k expert outputs gathered from the flat buffer (the
+    drop row reads zeros) and mixed by gate."""
+    B, _, D = out_flat.shape
+    out_flat = torch.cat([out_flat, torch.zeros((B, 1, D), dtype=out_flat.dtype,
+                                                device=out_flat.device)],
                          dim=1)
     y = torch.gather(out_flat, 1, idx).reshape(B, S, k, D)
     w = (gate * valid.to(gate.dtype))[..., None]
     return torch.sum(y * w.to(y.dtype), dim=2)
+
+
+def _experts(params, buf):
+    """The experts' SwiGLU over a (G, E, capacity, D) dispatch buffer."""
+    dt = buf.dtype
+    h = torch.einsum("becd,edf->becf", buf, params["wi"].to(dt))
+    g = torch.einsum("becd,edf->becf", buf, params["wg"].to(dt))
+    return torch.einsum("becf,efd->becd", F.silu(g) * h,
+                        params["wo"].to(dt))
+
+
+def _sharded_experts(dm, gpl):
+    """:func:`_experts` for a rank's local (Gl, E, capacity, D) buffer,
+    its groups placed by ``gpl`` on ``dm``: the products run on DTensors,
+    each expert's buffer laid out (E, groups * capacity, D) so that no
+    DTensor is reshaped or permuted, redistributed at the reference's
+    constraint sites (groups over the group axis, the expert hidden dim
+    over ``model``)."""
+    from repro_torch.dist import spmd
+    gdims = spmd.sharded_dims_of(gpl, 0)
+    epl = spmd.placements(dm, {1: list(gdims)})
+
+    def run(params, buf):
+        Gl, E, C, D = buf.shape
+        dt = buf.dtype
+        G = Gl
+        for d in gdims:
+            G *= dm.size(d)
+
+        def at(t, *tail):
+            return spmd.constrain(t, (None, _GROUP_AXIS) + tail)
+        flat = buf.transpose(0, 1).reshape(E, Gl * C, D)
+        b = at(spmd.wrap(flat, dm, epl, (E, G * C, D)), None)
+        h = torch.bmm(b, params["wi"].to(dt))
+        g = torch.bmm(b, params["wg"].to(dt))
+        h = at(F.silu(g) * h, _MODEL_AXIS)
+        out = at(torch.bmm(h, params["wo"].to(dt)), None)
+        return spmd.local(out, dm, epl).reshape(E, Gl, C, D).transpose(0, 1)
+    return run
 
 
 def moe_apply(params, x, *, num_experts: int, top_k: int,
@@ -131,11 +216,23 @@ def moe_apply(params, x, *, num_experts: int, top_k: int,
     end-padded to a multiple of R; pads sit after real tokens, so they
     only take leftover capacity): routing is then the same whether a
     prompt is prefilled whole or in chunks that start at multiples of R.
-    One decode token (S == 1) always gets its full top-k."""
+    One decode token (S == 1) always gets its full top-k.
+
+    On DTensors each rank routes its own groups' rows (the group axis of
+    the hook) on local tensors, so no DTensor is padded or reshaped; only
+    the expert products (:func:`_sharded_experts`) and the load-balance
+    loss's sums over the groups cross ranks."""
+    from repro_torch.dist import spmd
     B, S, D = x.shape
     E = num_experts
     dt = x.dtype
     logits = x @ params["router"].to(dt)                       # (B,S,E)
+    experts = None
+    if spmd.is_dist(x):
+        dm, gpl = x.device_mesh, _group_placements(x)
+        experts = _sharded_experts(dm, gpl)
+        x, logits = spmd.local(x, dm, gpl), spmd.local(logits, dm, gpl)
+    Bl = x.shape[0]
 
     R = route_block
     if R and R > 0 and S > 1:
@@ -143,16 +240,34 @@ def moe_apply(params, x, *, num_experts: int, top_k: int,
         pad = nb * R - S
         xg = F.pad(x, (0, 0, 0, pad)) if pad else x
         lg = F.pad(logits, (0, 0, 0, pad)) if pad else logits
-        out = _dispatch(params, xg.reshape(B * nb, R, D),
-                        lg.reshape(B * nb, R, E), E, top_k, capacity_factor)
-        out = out.reshape(B, nb * R, D)[:, :S]
+        out = _dispatch(params, xg.reshape(Bl * nb, R, D),
+                        lg.reshape(Bl * nb, R, E), E, top_k, capacity_factor,
+                        experts)
+        out = out.reshape(Bl, nb * R, D)[:, :S]
     else:
-        out = _dispatch(params, x, logits, E, top_k, capacity_factor)
+        out = _dispatch(params, x, logits, E, top_k, capacity_factor,
+                        experts)
 
-    # Switch-style load-balance auxiliary loss, on the unpadded logits
+    # Switch-style load-balance auxiliary loss, on the unpadded logits:
+    # the top-1 counts and the probabilities summed over this rank's
+    # groups, then over the group axis
     probs = torch.softmax(logits.float(), dim=-1)
     top1 = torch.argmax(probs, dim=-1)
-    frac_tokens = torch.mean(F.one_hot(top1, E).float(), dim=(0, 1))
-    frac_probs = torch.mean(probs, dim=(0, 1))
-    aux = aux_coef * E * torch.sum(frac_tokens * frac_probs)
+    sums = torch.stack([F.one_hot(top1, E).float().sum(dim=(0, 1)),
+                        probs.sum(dim=(0, 1))])
+    if experts is not None:
+        out = _constrain(spmd.wrap(out, dm, gpl, (B, S, D)), None, None)
+        sums = _group_sum(sums, dm, gpl)
+    n = B * S
+    aux = aux_coef * E * torch.sum((sums[0] / n) * (sums[1] / n))
     return out, aux
+
+
+def _group_sum(sums, dm, gpl):
+    """A rank's (2, E) sums over its groups, summed over the group axis
+    (a replicated DTensor)."""
+    from torch.distributed.tensor import Partial
+    from repro_torch.dist import spmd
+    pl = [Partial() if p.is_shard() else p for p in gpl]
+    return spmd.layout(spmd.wrap(sums, dm, pl, tuple(sums.shape)),
+                       spmd.reduced(pl))

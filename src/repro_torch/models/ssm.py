@@ -132,10 +132,12 @@ def _mlstm_chunk(q, k, v, log_i, log_f, state_C, state_n, state_m):
 
 
 def mlstm_apply(params, x, *, num_heads: int, state: MLSTMState = None,
-                chunk: int = 256, expansion: int = 2):
+                chunk: int = 256, expansion: int = 2, region=None):
     """mLSTM block.  x: (B,S,D) -> (out, new_state).  The chunk scan is
     one ``ops.mlstm_chunkwise`` call from ``state`` (zero if None) over
-    chunks of ``min(chunk, S)`` steps, which must divide S."""
+    chunks of ``min(chunk, S)`` steps, which must divide S; inside a
+    sharded step's local region (``region``, ``spmd.local_region``) the
+    call runs on the rank's heads (``spmd.heads_over_model``)."""
     B, S, D = x.shape
     di = D * expansion
     dh = di // num_heads
@@ -164,9 +166,11 @@ def mlstm_apply(params, x, *, num_heads: int, state: MLSTMState = None,
     L = min(chunk, S)
     if S % L:
         raise ValueError(f"seq {S} not divisible by chunk {L}")
-    h, C, n, m = ops.mlstm_chunkwise(
-        q, k, v, log_i, log_f, state.C.contiguous(), state.n.contiguous(),
-        state.m.contiguous(), chunk=L)
+    from repro_torch.dist import spmd
+    h, C, n, m = spmd.heads_over_model(
+        lambda *a: ops.mlstm_chunkwise(*a, chunk=L),
+        (q, k, v, log_i, log_f, state.C.contiguous(), state.n.contiguous(),
+         state.m.contiguous()), 4, region)
     h = h.transpose(1, 2).reshape(B, S, di).to(dt)
     h = rms_norm(params["gnorm"], h)
     out = (h * F.silu(z)) @ params["w_down"].to(dt)
@@ -319,13 +323,21 @@ def _mamba2_proj(params, x, di, state_dim, nheads):
 
 
 def mamba2_apply(params, x, *, state_dim: int, state: Mamba2State = None,
-                 expansion: int = 2, head_dim: int = 64, chunk: int = 256):
+                 expansion: int = 2, head_dim: int = 64, chunk: int = 256,
+                 region=None):
     """Mamba2 (SSD) block.  x: (B,S,D) -> (out, new_state).  Chunks of
     ``min(chunk, S)`` steps, which must divide S, from ``state`` (zero if
     None).  Inside a chunk the decay weights ``exp(b_t - b_s)`` are taken
     only on and below the diagonal (the masked exponent is -inf), where
     the reference takes them everywhere and masks after: the same values,
-    and no overflow above the diagonal."""
+    and no overflow above the diagonal.  With ``region`` (a sharded
+    step's local region, no state) the block runs on the rank's heads:
+    :func:`_mamba2_heads`."""
+    if region is not None:
+        if state is not None:
+            raise ValueError("a head-parallel Mamba2 block takes no state")
+        return _mamba2_heads(params, x, region, state_dim, expansion,
+                             head_dim, chunk)
     B, S, D = x.shape
     di = D * expansion
     nheads = di // head_dim
@@ -334,6 +346,25 @@ def mamba2_apply(params, x, *, state_dim: int, state: Mamba2State = None,
     z, xbc, dt_pre = _mamba2_proj(params, h_in, di, N, nheads)
     conv_state = state.conv if state is not None else None
     xbc_c, conv_new = causal_conv1d(params["conv"], xbc, conv_state)
+    if state is None:
+        state = mamba2_init_state(B, di, N, head_dim,
+                                  params["conv"]["w"].shape[0], x.dtype,
+                                  x.device)
+    y, h = _mamba2_scan(params, xbc_c, dt_pre, state.h, chunk)
+    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    y = rms_norm(params["gnorm"], y)
+    out = (y * F.silu(z)) @ params["w_out"].to(x.dtype)
+    return x + out, Mamba2State(h, conv_new)
+
+
+def _mamba2_scan(params, xbc_c, dt_pre, h, chunk: int):
+    """The SSD chunk scan of the convolved (B, S, di + 2N) ``xbc_c`` from
+    state ``h`` (B, H, dh, N), heads as ``params``' ``A_log``, ``D`` and
+    ``dt_bias`` give them.  Returns (y (B, H, S, dh) f32, the end
+    state)."""
+    B, S, _ = xbc_c.shape
+    nheads, head_dim, N = h.shape[1], h.shape[2], h.shape[3]
+    di = nheads * head_dim
     xs = xbc_c[..., :di].float()
     Bmat = xbc_c[..., di:di + N].float()                       # (B,S,N)
     Cmat = xbc_c[..., di + N:].float()
@@ -343,15 +374,11 @@ def mamba2_apply(params, x, *, state_dim: int, state: Mamba2State = None,
     xh = xs.reshape(B, S, nheads, head_dim).transpose(1, 2)    # (B,H,S,dh)
     xh_dt = xh * dt.transpose(1, 2)[..., None]
 
-    if state is None:
-        state = mamba2_init_state(B, di, N, head_dim,
-                                  params["conv"]["w"].shape[0], x.dtype,
-                                  x.device)
     L = min(chunk, S)
     if S % L:
         raise ValueError(f"seq {S} not divisible by chunk {L}")
-    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    h = state.h
+    causal = torch.ones((L, L), dtype=torch.bool,
+                        device=xbc_c.device).tril()
     ys = []
     for c in range(S // L):
         sl = slice(c * L, (c + 1) * L)
@@ -372,11 +399,50 @@ def mamba2_apply(params, x, *, state_dim: int, state: Mamba2State = None,
         h = torch.exp(bl)[..., None] * h + \
             (xc * w_state[..., None]).transpose(-1, -2) @ bc[:, None]
     y = torch.cat(ys, dim=2)                                   # (B,H,S,dh)
-    y = y + params["D"][None, :, None, None] * xh
-    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
-    y = rms_norm(params["gnorm"], y)
-    out = (y * F.silu(z)) @ params["w_out"].to(x.dtype)
-    return x + out, Mamba2State(h, conv_new)
+    return y + params["D"][None, :, None, None] * xh, h
+
+
+def _mamba2_heads(params, x, region, N: int, expansion: int, head_dim: int,
+                  chunk: int):
+    """:func:`mamba2_apply` with no state on this rank's share of the heads
+    in the local region ``region`` (``spmd.local_region``, the weights
+    gathered whole), the rank's being those of its ``model`` coordinate:
+    the input projection column-parallel (its z, x and dt columns and the
+    shared B and C), the conv on those channels, the scan on those heads,
+    the gated norm over all heads through one sum over ``model`` of a
+    value a row, and the output projection row-parallel, summed over
+    ``model``.  The input's gradient is summed over ``model`` where it
+    enters the projection, so every weight's gradient here is this rank's
+    share (``local_region``'s ``shared``) but the input norm's."""
+    from repro_torch.dist import spmd
+    B, S, D = x.shape
+    di = D * expansion
+    H = di // head_dim
+    m = spmd.axis_size(region[0], "model")
+    r = spmd.axis_coord(region[0], "model")
+    hs = slice(r * H // m, (r + 1) * H // m)
+    cs = slice(hs.start * head_dim, hs.stop * head_dim)
+    dl = cs.stop - cs.start
+    w = params["w_in"]
+    w = torch.cat([w[:, cs], w[:, di:][:, cs], w[:, 2 * di:2 * di + 2 * N],
+                   w[:, 2 * di + 2 * N:][:, hs]], 1)
+    h_in = spmd.region_grad_sum(rms_norm(params["norm"], x), region)
+    z, xbc, dt_pre = _mamba2_proj({"w_in": w}, h_in, dl, N, dl // head_dim)
+    conv = {k: torch.cat([v[..., cs], v[..., di:]], -1)
+            for k, v in params["conv"].items()}
+    xbc_c, _ = causal_conv1d(conv, xbc)
+    h0 = torch.zeros((B, dl // head_dim, head_dim, N), dtype=torch.float32,
+                     device=x.device)
+    y, _ = _mamba2_scan({k: params[k][hs] for k in ("A_log", "D",
+                                                     "dt_bias")},
+                        xbc_c, dt_pre, h0, chunk)
+    y32 = y.transpose(1, 2).reshape(B, S, dl).to(x.dtype).float()
+    ss = spmd.region_sum(torch.sum(torch.square(y32), -1, keepdim=True),
+                         region, grad_sum=True)
+    y = (y32 * torch.rsqrt(ss / di + 1e-6)
+         * params["gnorm"]["scale"][cs]).to(x.dtype)
+    out = (y * F.silu(z)) @ params["w_out"][cs].to(x.dtype)
+    return x + spmd.region_sum(out, region), None
 
 
 def mamba2_decode_step(params, x, state: Mamba2State, *, state_dim: int,

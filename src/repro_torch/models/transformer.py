@@ -35,6 +35,7 @@ in the backward with ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -53,6 +54,37 @@ from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window" sentinel, as in the reference
+
+# --------------------------------------------------------------------------
+# Activation-sharding hook, as in the reference: when a sharded step sets a
+# spec (``launch/steps.py::_act_spec``), the hidden state is redistributed
+# to it at every layer (super-block) boundary, so the remat stash is
+# sharded instead of replicated over ``model``.  Plain tensors pass.
+_ACT_SPEC = None
+
+
+def set_activation_sharding(spec):
+    global _ACT_SPEC
+    _ACT_SPEC = spec
+
+
+@contextlib.contextmanager
+def activation_sharding(spec):
+    """``set_activation_sharding(spec)`` for the body, the old spec
+    after."""
+    old = _ACT_SPEC
+    set_activation_sharding(spec)
+    try:
+        yield
+    finally:
+        set_activation_sharding(old)
+
+
+def _constrain(x):
+    from repro_torch.dist import spmd
+    if _ACT_SPEC is not None and x.ndim >= 3:
+        x = spmd.constrain(x, _ACT_SPEC)
+    return x
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -94,50 +126,90 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
     raise ValueError(kind)
 
 
-def _init_stacked(make, n: int):
+def _keys(tree, prefix: tuple = ()):
+    """(key path, leaf) of every leaf of a nested dict, in tree order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _keys(v, prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _cut(tree, prefix: tuple, where):
+    """``tree`` with each leaf cut to ``where(key path)`` (a tuple of
+    slices), copied so the full leaf can go; itself without ``where``."""
+    if where is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _cut(v, prefix + (k,), where) for k, v in tree.items()}
+    return tree[where(prefix)].clone()
+
+
+def _init_stacked(make, n: int, prefix: tuple = (), where=None):
     """``n`` draws of ``make()`` stacked leaf by leaf.  Each draw is copied
     into the stack as it is made, so the n draws and their stack are never
-    all held at once (stablelm-12b's 40 f32 layers are 45 GiB)."""
+    all held at once (stablelm-12b's 40 f32 layers are 45 GiB).  With
+    ``where`` (key path of the stacked leaf -> its slices, the first over
+    the layers) only that part of each leaf is kept."""
     out = None
     for i in range(n):
         one = make()
         if out is None:
-            out = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
-        for dst, src in zip(tree_leaves(out), tree_leaves(one)):
-            dst[i].copy_(src)
-    return out
+            cuts = [where(prefix + k) if where else
+                    (slice(0, n),) + tuple(slice(None) for _ in t.shape)
+                    for k, t in _keys(one)]
+            out = [t.new_empty((c[0].stop - c[0].start,)
+                               + tuple(t[c[1:]].shape))
+                   for (_, t), c in zip(_keys(one), cuts)]
+        for dst, (_, src), c in zip(out, _keys(one), cuts):
+            if c[0].start <= i < c[0].stop:
+                dst[i - c[0].start].copy_(src[c[1:]])
+    it = iter(out)
+    return tree_map(lambda _: next(it), one)
 
 
-def init_model(seed: int, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+def init_model(seed: int, cfg: ModelConfig, device="cuda",
+               where=None) -> Dict[str, Any]:
     """Random f32 params from ``seed`` with the reference's tree layout, on
     the card unless ``device`` says otherwise.  The draws differ from the
     reference's (``jax.random`` is not reproducible here): parity tests
-    carry the reference's params across with ``interop.model_params``."""
+    carry the reference's params across with ``interop.model_params``.
+    ``where`` (a leaf's key path -> a tuple of slices) keeps only that part
+    of each leaf, drawn in the same order, one layer at a time
+    (``dist/partition.py::init_local``)."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
-    params: Dict[str, Any] = {"final_norm": init_rmsnorm(cfg.d_model, device)}
+
+    def top(key, tree):
+        return _cut(tree, (key,), where)
+
+    params: Dict[str, Any] = {
+        "final_norm": top("final_norm", init_rmsnorm(cfg.d_model, device))}
     if cfg.frontend == "audio":
-        params["frontend_proj"] = init_linear(gen, cfg.frontend_feat_dim,
-                                              cfg.d_model)
-        params["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+        params["frontend_proj"] = top("frontend_proj", init_linear(
+            gen, cfg.frontend_feat_dim, cfg.d_model))
+        params["head"] = top("head", init_linear(gen, cfg.d_model,
+                                                 cfg.vocab_size))
     else:
-        params["embed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model)
+        params["embed"] = top("embed", init_embedding(gen, cfg.vocab_size,
+                                                      cfg.d_model))
         if not cfg.tie_embeddings:
-            params["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab_size)
+            params["unembed"] = top("unembed", init_linear(
+                gen, cfg.d_model, cfg.vocab_size))
     if cfg.frontend == "vision":
-        params["patch_proj"] = init_linear(gen, cfg.frontend_feat_dim,
-                                           cfg.d_model)
+        params["patch_proj"] = top("patch_proj", init_linear(
+            gen, cfg.frontend_feat_dim, cfg.d_model))
     if cfg.block_pattern:
         params["super"] = {
-            f"{kind}_{i}": _init_stacked(lambda: _init_block(gen, kind, cfg),
-                                         cfg.num_super)
+            f"{kind}_{i}": _init_stacked(
+                lambda: _init_block(gen, kind, cfg), cfg.num_super,
+                ("super", f"{kind}_{i}"), where)
             for i, kind in enumerate(cfg.block_pattern)
             if kind != "attn_shared"}
         if "attn_shared" in cfg.block_pattern:
-            params["shared_attn"] = _init_attn_layer(gen, cfg)
+            params["shared_attn"] = top("shared_attn",
+                                        _init_attn_layer(gen, cfg))
     else:
         params["layers"] = _init_stacked(lambda: _init_attn_layer(gen, cfg),
-                                         cfg.num_layers)
+                                         cfg.num_layers, ("layers",), where)
     return params
 
 
@@ -309,7 +381,9 @@ def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
         head_dim=cfg.resolved_head_dim, positions=positions, causal=cfg.causal,
         window=window, attn_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
         cache=cache, page_table=page_table)
-    x = x + a
+    # a sharded step reduces each branch's partial sums straight into the
+    # residual stream's placement
+    x = x + _like(a, x)
     h = rms_norm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         m, aux = moe_apply(
@@ -317,8 +391,28 @@ def _attn_block(lp, x, cfg: ModelConfig, positions, window, cache,
             top_k=cfg.experts_per_token, aux_coef=cfg.router_aux_coef,
             capacity_factor=cfg.moe_capacity_factor,
             route_block=cfg.moe_route_block)
-        return x + m, cache, aux
-    return x + mlp(lp["mlp"], h, cfg.act), cache, None
+        return x + _like(m, x), cache, aux
+    return x + _like(mlp(lp["mlp"], h, cfg.act), x), cache, None
+
+
+class _Layers:
+    """``n`` layers made on demand by ``get(i)``."""
+
+    def __init__(self, get, n: int):
+        self.get, self.n = get, n
+
+    def __getitem__(self, i):
+        return self.get(i)
+
+    def __len__(self):
+        return self.n
+
+
+def _like(a, x):
+    """DTensor ``a`` in ``x``'s placements (its partial sums reduced
+    there); a plain tensor as it is."""
+    from repro_torch.dist import spmd
+    return spmd.layout(a, x.placements) if spmd.is_dist(a) else a
 
 
 def _unstack(tree, n: int):
@@ -326,10 +420,15 @@ def _unstack(tree, n: int):
     one ``unbind`` a leaf.  Its backward stacks a leaf's layer gradients
     once; indexing layer by layer would instead add a zero-padded,
     full-size gradient of the stacked leaf for every layer (quadratic in
-    depth)."""
+    depth).  A DTensor leaf whose layer dim is split (FSDP on the layer
+    dim) gives each layer when it is read, gathered from the rank holding
+    it (``spmd.stack_layer``), so no rank holds the whole stack."""
+    from repro_torch.dist import spmd
     if isinstance(tree, dict):
         per = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: per[k][i] for k in tree} for i in range(n)]
+        return _Layers(lambda i: {k: per[k][i] for k in tree}, n)
+    if spmd.is_dist(tree) and spmd.sharded_dims(tree, 0):
+        return _Layers(lambda i: spmd.stack_layer(tree, i), n)
     return torch.unbind(tree, 0)
 
 
@@ -347,12 +446,42 @@ def _freeze_idle(old, new, positions):
         o.copy_(torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o))
 
 
-def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
+def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache,
+                region=None):
     """One recurrent block; a given state is updated in place.  A decode
     step (S == 1 with a cache) takes the exact recurrent update and pins
     idle rows; everything else takes the chunkwise form, whose mLSTM part
     is one ``ops.mlstm_chunkwise`` call, with the reference's chunk of
-    ``min(256, S)``."""
+    ``min(256, S)``.  On DTensors the block runs on each rank's batch rows
+    with its weights gathered (``spmd.local_region``), the mLSTM kernel
+    on the rank's heads; a Mamba2 block with no state whose heads divide
+    ``model`` runs on the rank's heads throughout
+    (``ssm._mamba2_heads``)."""
+    from repro_torch.dist import spmd
+    if spmd.is_dist(x):
+        dm = x.device_mesh
+        bd = spmd.sharded_dims(cache[0], 0) if cache is not None \
+            else spmd.batch_dims(dm, x.shape[0])
+        m = spmd.axis_size(dm, "model")
+        heads = kind == "mamba2" and cache is None and m > 1 \
+            and lp["A_log"].shape[0] % m == 0
+        shared = {k: v for k, v in lp.items() if k != "norm"} if heads \
+            else {}
+        own = {k: v for k, v in lp.items() if k not in shared}
+        pos_b = positions.ndim == 2
+        batched = [x, positions] if pos_b else [x]
+        whole = [own] if pos_b else [own, positions]
+
+        def body(region, *a):
+            if pos_b:
+                xl, pl, lpl, spl, st = a
+            else:
+                xl, lpl, pl, spl, st = a
+            return _apply_kind(kind, {**lpl, **spl}, xl, cfg, pl, st,
+                               region if kind != "mamba2" or heads
+                               else None)
+        return spmd.local_region(body, dm, bd, batched, whole, [cache],
+                                 [shared])
     decode = x.shape[1] == 1 and cache is not None
     if kind == "mlstm" and decode:
         y, st = ssm.mlstm_decode_step(lp, x, cache, num_heads=cfg.num_heads,
@@ -360,13 +489,14 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
     elif kind == "mlstm":
         y, st = ssm.mlstm_apply(lp, x, num_heads=cfg.num_heads, state=cache,
                                 chunk=min(256, x.shape[1]),
-                                expansion=cfg.ssm_expansion)
+                                expansion=cfg.ssm_expansion, region=region)
     elif kind == "mamba2" and decode:
         y, st = ssm.mamba2_decode_step(lp, x, cache,
                                        state_dim=cfg.ssm_state_dim)
     elif kind == "mamba2":
         y, st = ssm.mamba2_apply(lp, x, state_dim=cfg.ssm_state_dim,
-                                 state=cache, chunk=min(256, x.shape[1]))
+                                 state=cache, chunk=min(256, x.shape[1]),
+                                 region=region)
     elif kind == "slstm":
         y, st = ssm.slstm_apply(lp, x, num_heads=cfg.num_heads, state=cache)
     else:
@@ -377,6 +507,18 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache):
         for o, n in zip(cache, st):
             o.copy_(n)
     return y
+
+
+def _zero(x):
+    """A 0-d f32 zero like ``x``: on its device, replicated over its mesh
+    when ``x`` is a DTensor."""
+    from repro_torch.dist import spmd
+    if not spmd.is_dist(x):
+        return torch.zeros((), device=x.device)
+    from torch.distributed.tensor import Replicate
+    dm = x.device_mesh
+    return spmd.wrap(torch.zeros((), device=x.to_local().device), dm,
+                     [Replicate()] * dm.ndim, ())
 
 
 def _remat(fn, remat: bool, *args):
@@ -401,6 +543,7 @@ def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None,
     sup = {k: _unstack(v, cfg.num_super) for k, v in params["super"].items()}
 
     def super_block(s, x, aux):
+        x = _constrain(x)
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{kind}_{i}"
             cache = None if caches is None else type(caches[key])(
@@ -417,7 +560,7 @@ def _apply_patterned(params, cfg: ModelConfig, x, positions, caches=None,
                                 cache)
         return x, aux
 
-    aux = torch.zeros((), device=x.device)
+    aux = _zero(x)
     for s in range(cfg.num_super):
         x, aux = _remat(super_block, remat and caches is None, s, x, aux)
     return x, caches, aux
@@ -440,6 +583,7 @@ def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
     layers = _unstack(params["layers"], cfg.num_layers)
 
     def layer(i, x, aux):
+        x = _constrain(x)
         if isinstance(caches, list):
             ci = caches[i]
         else:
@@ -449,7 +593,7 @@ def apply_stack(params, cfg: ModelConfig, x, positions, caches=None,
                               page_table)
         return x, aux if a is None else aux + a
 
-    aux = torch.zeros((), device=x.device)
+    aux = _zero(x)
     for i in range(cfg.num_layers):
         x, aux = _remat(layer, remat and caches is None, i, x, aux)
     return x, caches, aux
@@ -484,7 +628,17 @@ def _arange(x):
 
 
 def _logits(params, cfg: ModelConfig, h):
-    if cfg.frontend == "audio":
+    from repro_torch.dist import spmd
+    if spmd.is_dist(h):
+        # vocab-parallel: whole features in, the vocab split as the
+        # table's is
+        if cfg.frontend == "audio":
+            lg = spmd.col(h, params["head"])
+        elif cfg.tie_embeddings:
+            lg = spmd.col(h, {"w": params["embed"]["table"].T})
+        else:
+            lg = spmd.col(h, params["unembed"])
+    elif cfg.frontend == "audio":
         lg = linear(params["head"], h)
     elif cfg.tie_embeddings:
         lg = unembed(params["embed"], h)
@@ -507,9 +661,13 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
 
 def _xent_chunk(params, cfg: ModelConfig, h, labels, mask):
     """Summed masked NLL of one chunk, in f32."""
+    from repro_torch.dist import spmd
     logits = _logits(params, cfg, h).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if spmd.is_dist(logits):
+        lse, picked = spmd.vocab_xent(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.sum((lse - picked) * mask)
 
 
@@ -518,14 +676,17 @@ def _chunked_xent(h, cfg: ModelConfig, params, labels, mask,
     """Cross-entropy over sequence chunks of ``min(chunk, S)`` positions
     (the sequence padded to a whole number of chunks, padding masked), so
     no (B, S, V) logits tensor exists at once: with grad enabled each
-    chunk's logits are recomputed in the backward rather than kept."""
+    chunk's logits are recomputed in the backward rather than kept.  On
+    DTensors each chunk's logits stay split over the vocab
+    (``spmd.vocab_xent``)."""
+    from repro_torch.dist import spmd
     B, S, D = h.shape
     L = min(chunk, S)
     nc = -(-S // L)
     pad = nc * L - S
-    hp = F.pad(h, (0, 0, 0, pad))
-    lp = F.pad(labels, (0, pad))
-    mp = F.pad(mask, (0, pad))
+    hp = spmd.pad(h, (0, 0, 0, pad))
+    lp = spmd.pad(labels, (0, pad))
+    mp = spmd.pad(mask, (0, pad))
     tot = torch.zeros((), device=h.device)
     cnt = torch.zeros((), device=h.device)
     for c in range(nc):
@@ -541,6 +702,7 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
             window_override: Optional[int] = None):
     """Training loss (causal LM / masked prediction / text-only VLM), plus
     the MoE load-balance loss."""
+    from repro_torch.dist import spmd
     x, positions, text_mask = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
     h, _, aux = apply_stack(params, cfg, x, positions,
@@ -555,32 +717,38 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
 
     if cfg.frontend == "vision" and "patches" in batch:
         T = batch["tokens"].shape[1]
-        labels = F.pad(batch["labels"], (S - T, 0))
+        labels = spmd.pad(batch["labels"], (S - T, 0))
         mask = text_mask[None].expand(B, S).float()
+        if spmd.is_dist(h):
+            mask = spmd.wrap(mask, h.device_mesh, spmd.placements(
+                h.device_mesh, {}), (B, S))
         # next-token: positions predicting text tokens only
         loss = _chunked_xent(h[:, :-1], cfg, params, labels[:, 1:],
                              mask[:, 1:])
         return loss + aux
 
     labels = batch["labels"]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    mask = torch.ones_like(labels, dtype=torch.float32)
     loss = _chunked_xent(h[:, :-1], cfg, params, labels[:, 1:], mask[:, 1:])
     return loss + aux
 
 
 def prefill(params, cfg: ModelConfig, batch, max_seq: int,
             window_override: Optional[int] = None,
-            per_layer_cache: bool = False):
+            per_layer_cache: bool = False, caches=None):
     """Prefill -> (last-position logits, filled caches).  Positions are
     ``arange(S)`` by construction, so every layer's attention runs the
     flash kernel on a CUDA tensor, and every mLSTM block one launch of the
     mLSTM kernel from a zero state.  ``per_layer_cache`` fills a list of
-    per-layer caches (local/global archs)."""
+    per-layer caches (local/global archs).  ``caches`` (fresh, as
+    ``init_cache`` makes them; a sharded step's are DTensors) are filled
+    in place of new ones."""
     x, positions, _ = _embed_inputs(params, cfg, batch)
     x = x.to(torch_dtype(cfg))
-    caches = init_cache(cfg, x.shape[0], max_seq, window_override,
-                        torch_dtype(cfg), device=x.device,
-                        per_layer=per_layer_cache)
+    if caches is None:
+        caches = init_cache(cfg, x.shape[0], max_seq, window_override,
+                            torch_dtype(cfg), device=x.device,
+                            per_layer=per_layer_cache)
     h, caches, _ = apply_stack(params, cfg, x, positions, caches=caches,
                                window_override=window_override)
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)

@@ -18,12 +18,22 @@ class AdamState(NamedTuple):
 
 
 def adam_init(params) -> AdamState:
+    """Zero moments in f32 beside each param (DTensor params get DTensor
+    moments of their placements) and a 0-d int32 step, replicated over
+    the params' mesh when they are DTensors."""
+    from repro_torch.dist import spmd
     leaf = next(iter(tree_flatten(params)[0]))
     zeros = lambda p: tree_map(lambda x: torch.zeros_like(
         x, dtype=torch.float32), p)
-    return AdamState(step=torch.zeros((), dtype=torch.int32,
-                                      device=leaf.device),
-                     mu=zeros(params), nu=zeros(params))
+    if spmd.is_dist(leaf):
+        from torch.distributed.tensor import Replicate
+        dm = leaf.device_mesh
+        step = spmd.wrap(torch.zeros((), dtype=torch.int32,
+                                     device=leaf.to_local().device), dm,
+                         [Replicate()] * dm.ndim, ())
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    return AdamState(step=step, mu=zeros(params), nu=zeros(params))
 
 
 @torch.no_grad()

@@ -63,8 +63,31 @@ def assert_finite(tree, name: str = "tree"):
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """The 2-norm of every leaf of ``tree`` together.  On DTensors each
+    rank sums the squares of its shards, each divided by the number of
+    ranks holding that same shard, and the sum over every rank is reduced
+    once: the norm of the whole tree, replicated, never a shard's norm."""
+    leaves = tree_leaves(tree)
+    from torch.distributed.tensor import DTensor
+    if leaves and isinstance(leaves[0], DTensor):
+        return _global_norm_dist(leaves)
+    leaves = [torch.sum(torch.square(x.float())) for x in leaves]
     return torch.sqrt(sum(leaves))
+
+
+def _global_norm_dist(leaves) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dm = leaves[0].device_mesh
+    total = 0.0
+    for x in leaves:
+        copies = 1
+        for md, p in enumerate(x.placements):
+            if not p.is_shard():
+                copies *= dm.size(md)
+        total = total + torch.sum(torch.square(x.to_local().float())) / copies
+    part = DTensor.from_local(total, dm, [Partial()] * dm.ndim,
+                              run_check=False)
+    return torch.sqrt(part.redistribute(dm, [Replicate()] * dm.ndim))
 
 
 def he_init(gen: torch.Generator, shape):

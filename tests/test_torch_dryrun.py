@@ -331,16 +331,33 @@ def test_run_one_full_internlm2_records(shape_name):
     step's counts, one flash call a layer in prefill and two in train
     (the forward and its remat recompute; the backward differentiates the
     plain version), the arguments the step reads, the mesh's per-chip
-    argument bytes and null
-    SPMD-only fields."""
+    argument bytes, and the SPMD-only fields traced from rank 0's program
+    on the (16, 16) mesh: each rank computes 1/256 of the whole step's
+    products (no product is computed twice), except long_500k's batch of
+    one, which every rank of ``data`` repeats (16 times the share); the
+    rank moves bytes, holds temporaries and none of them cross a pod."""
     arch = "internlm2-1.8b"
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     rec = dryrun.run_one(arch, shape_name, False)
     assert rec["status"] == "ok" and rec["chips"] == 256
     assert rec["compile_s"] is None and rec["lower_s"] >= 0
+    assert rec["per_device_scope"] == "rank 0 of the mesh"
     for k in dryrun.SPMD_ONLY:
-        assert rec[k] is None
+        assert rec[k] > 0, k
+    assert rec["cross_pod_bytes"] == 0.0
+    assert rec["per_device_mem_bytes"] == rec["per_device_argument_bytes"] \
+        + rec["per_device_temp_bytes"]
+    # the rank's shards are the specs' per-chip bytes, but prefill's
+    # labels, which no op reads
+    unread = shape.global_batch * shape.seq_len * 4 // 16 \
+        if shape.mode == "prefill" else 0
+    assert rec["per_device_argument_bytes"] == \
+        rec["mem_argument_bytes_per_device"] - unread
+    want = 16 if shape_name == "long_500k" else 1
+    assert rec["per_device_dot_flops"] * 256 == pytest.approx(
+        want * rec["hlo_dot_flops"], rel=1e-9)
+    assert rec["dot_redundancy"] == pytest.approx(want, rel=1e-9)
     assert rec["mem_per_device_bytes"] == rec["mem_argument_bytes"] \
         + rec["mem_temp_bytes"]
     L, D = cfg.num_layers, cfg.d_model
@@ -388,10 +405,12 @@ def test_save_and_reanalyze_give_the_same_fields(tmp_path):
     (path,) = out.glob("*.json")
     before = json.loads(path.read_text())
     assert (hlo / "internlm2-1.8b_decode_32k_single.hlo.gz").exists()
-    changed = dict(before, hlo_dot_flops=-1.0, mem_temp_bytes=-1)
+    assert (hlo / "internlm2-1.8b_decode_32k_single_rank0.hlo.gz").exists()
+    changed = dict(before, hlo_dot_flops=-1.0, mem_temp_bytes=-1,
+                   per_device_dot_flops=-1.0, per_device_temp_bytes=-1)
     path.write_text(json.dumps(changed))
     reanalyze.main(["--dryrun", str(out), "--hlo", str(hlo)])
     after = json.loads(path.read_text())
-    for k in reanalyze.FIELDS:
+    for k in list(reanalyze.FIELDS) + list(reanalyze.RANK_FIELDS):
         assert after[k] == before[k], k
     assert after["mem_per_device_bytes"] == before["mem_per_device_bytes"]

@@ -175,11 +175,15 @@ def test_aux_loss_uniform_router_is_minimal():
 
 
 def test_sharding_hooks_are_identities():
-    """The reference's sharding hooks keep their signatures and do
-    nothing on one device."""
-    assert TM.set_moe_sharding(("data",), "model") is None
-    x = torch.ones(2, 3, 4)
-    assert TM._constrain(x, None, "model") is x
+    """The reference's sharding hooks keep their signatures and, set or
+    not, leave a plain tensor (one device) as it is; a sharded step sets
+    them only for its own call."""
+    with TM.moe_sharding(("data",), "model"):
+        assert (TM._GROUP_AXIS, TM._MODEL_AXIS) == (("data",), "model")
+        x = torch.ones(2, 3, 4)
+        assert TM._constrain(x, None, "model") is x
+    assert TM._GROUP_AXIS is None
+    assert TM.set_moe_sharding(None) is None
 
 
 # ------------------------------------------------------- granite-moe stack --
