@@ -460,6 +460,13 @@ MEM_TOL = 0.10
 # and the small mesh reduced xlstm-1.3b's rank 0 runs on
 SH_ARCHS = ("internlm2-1.8b", "qwen2-72b")
 SH_SMALL_MESH = ((2, 2), ("data", "model"))
+# phase 21: the recurrent archs whose decode_32k rank 0 of (16, 16) runs
+# at full width and depth, each with its most dot_redundancy may read
+SH_DECODE = (("zamba2-7b", 1.2), ("xlstm-1.3b", 1.5))
+# phase 21: the mLSTM kernel at the ranks' value splits, (B, H, S, dk, dv,
+# chunk): a prefill_32k rank's 2 rows of xlstm-1.3b over 16 model ranks
+# (S cut from 32,768) and the reduced (2, 2) rank's train and prefill
+SH_MLSTM = ((2, 4, 2048, 512, 32, 256), (2, 4, 128, 64, 32, 128))
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
                       "src/repro/kernels/env_megakernel.py:226"),
@@ -1585,14 +1592,17 @@ def check_head_dims(gen, dev):
 
 
 # -------------------------------------------------------------- mLSTM ----
-def mlstm_inputs(B, H, S, dh, zero, gen, dev, li_scale=1.0, lf_shift=2.0):
-    """q, k, v ~ N(0, 1), log_i ~ N(0, li_scale^2), log_f =
-    logsigmoid(N(lf_shift, 1)), and a zero or N(0, 1) (C0, n0, m0)."""
+def mlstm_inputs(B, H, S, dh, zero, gen, dev, li_scale=1.0, lf_shift=2.0,
+                 dv=None):
+    """q, k (dh wide) and v (``dv`` wide, dh when None) ~ N(0, 1), log_i ~
+    N(0, li_scale^2), log_f = logsigmoid(N(lf_shift, 1)), and a zero or
+    N(0, 1) (C0 (dv x dh), n0, m0)."""
+    dv = dh if dv is None else dv
     r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    q, k, v = r(B, H, S, dh), r(B, H, S, dh), r(B, H, S, dh)
+    q, k, v = r(B, H, S, dh), r(B, H, S, dh), r(B, H, S, dv)
     li = r(B, H, S) * li_scale
     lf = torch.nn.functional.logsigmoid(r(B, H, S) + lf_shift)
-    st = (r(B, H, dh, dh), r(B, H, dh), r(B, H))
+    st = (r(B, H, dv, dh), r(B, H, dh), r(B, H))
     if zero:
         st = tuple(torch.zeros_like(t) for t in st)
     return (q, k, v, li, lf, *st)
@@ -3119,6 +3129,152 @@ def check_rank_flash(gen, dev, shape):
     return err, ulps, rows, worst
 
 
+def check_rank_mlstm(gen, dev):
+    """Phase 21 (a): the mLSTM kernel at the ranks' value splits
+    (``SH_MLSTM``: dv of every head's value rows, dk whole), from a
+    random state: h and the final (C, n, m) within 1e-4 of each output's
+    largest against the plain version (``check_mlstm``), then in f32 the
+    ``_MLSTMChunkwise`` gradients of every input against autograd of the
+    plain version (``grads_held``, S cut to 512 at full width).  Returns
+    (max_abs_err, worst relative gradient error)."""
+    from repro_torch.kernels import ops, ref
+    err, worst = 0.0, 0.0
+    for B, H, S, dk, dv, chunk in SH_MLSTM:
+        err = max(err, check_mlstm(mlstm_inputs(B, H, S, dk, False, gen, dev,
+                                                dv=dv), chunk))
+        args = mlstm_inputs(B, H, min(S, 512), dk, False, gen, dev, dv=dv)
+        ws = [torch.randn(t.shape, generator=gen, device=dev)
+              for t in (args[2], args[5], args[6], args[7])]
+        worst = max(worst, grads_held(
+            lambda *a, c=chunk: ops.mlstm_chunkwise(*a, chunk=c),
+            lambda *a, c=chunk: ref.mlstm_chunkwise_ref(*a, c), args, ws))
+        del args, ws
+    torch.cuda.empty_cache()
+    return err, worst
+
+
+def fill_random(tree, gen, dev):
+    """Every float shard of the DTensor tree ``tree`` drawn N(0, 0.02^2) in
+    place (int leaves left as they are)."""
+    from repro_torch.utils import tree_leaves
+    for t in tree_leaves(tree):
+        loc = t.to_local()
+        if loc.is_floating_point():
+            loc.copy_(torch.randn(loc.shape, generator=gen, device=dev) * 0.02)
+
+
+def serve_args(fn, sds, cfg, dm, dev, shape, seed=0):
+    """Rank 0's arguments of a sharded decode step at ``shape``: params
+    drawn into the rank's shards, fresh caches (``empty_placed``), a
+    random token a row and every row at position ``seq_len - 1``."""
+    from repro_torch.dist import partition
+    from repro_torch.launch.steps import place_abstract
+    params, _, tok, pos = place_abstract("decode", fn, sds, dm, dev)
+    cache = partition.empty_placed(sds[1], fn.specs["cache"], dm, dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    fill_random(params, gen, dev)
+    loc = tok.to_local()
+    loc.copy_(torch.randint(0, cfg.vocab_size, loc.shape, generator=gen,
+                            device=dev, dtype=loc.dtype))
+    pos.to_local().fill_(shape.seq_len - 1)
+    return params, cache, tok, pos
+
+
+def run_rank0_decode(dev, arch, bound):
+    """Phase 21 (b): ``arch``'s decode_32k as rank 0 of (16, 16) at full
+    width and depth, its recurrent blocks on their cache's ``model``
+    split.  The dry run's cell (``dryrun.run_one``: the whole step and
+    rank 0's program traced on fake tensors) gives ``dot_redundancy``,
+    asserted at most ``bound``; then one real decode step of rank 0 on
+    the card under the ``fake`` group, under the op counter: its dot
+    FLOPs equal the trace's, and its peak bytes (from a reset, a second
+    step) within MEM_TOL of the trace's arguments + temporaries."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_serve_step
+    rec = dryrun.run_one(arch, "decode_32k", False)
+    assert rec["status"] == "ok", rec
+    assert rec["dot_redundancy"] <= bound, (arch, rec["dot_redundancy"])
+    cfg, shape = get_config(arch), INPUT_SHAPES["decode_32k"]
+    mesh = mesh_lib.make_production_mesh()
+    with dryrun.fake_world(mesh.size):
+        dm = mesh_lib.device_mesh(mesh, dev.type)
+        fn, sds = make_serve_step(cfg, dm, shape)
+        args = serve_args(fn, sds, cfg, dm, dev, shape)
+        args_b = storage_bytes(args)
+        counter = hlo_analysis.OpCounter()
+        counter.watch(args)
+        with counter:
+            out = fn(*args)
+        counter.finish(out)
+        torch.cuda.synchronize()
+        del out
+        real = hlo_analysis.analyze(counter.trace())
+        del counter
+        ms, peak, base = timed_step(dev, fn, args)
+        del args
+    predicted = rec["per_device_mem_bytes"]
+    measured = peak - (base - args_b)
+    st = {"rec": rec, "real_dot_flops": real["dot_flops"],
+          "real_temp_bytes": real["mem_temp_bytes"], "step_ms": ms,
+          "predicted_bytes": predicted, "measured_bytes": measured,
+          "argument_bytes": args_b,
+          "rel_diff": abs(measured - predicted) / measured}
+    assert int(rec["per_device_dot_flops"]) == int(real["dot_flops"]), \
+        (arch, rec["per_device_dot_flops"], real["dot_flops"])
+    assert rec["per_device_argument_bytes"] == args_b, \
+        (arch, rec["per_device_argument_bytes"], args_b)
+    assert st["rel_diff"] <= MEM_TOL, (arch, predicted, measured)
+    torch.cuda.empty_cache()
+    return st
+
+
+def run_small_serve(dev, cfg, mesh, S=128, B=4):
+    """Phase 21 (c): ``cfg``'s prefill of ``B`` x ``S`` tokens, then one
+    decode step on those caches, as rank 0 of ``mesh`` under the ``fake``
+    group (its recurrent blocks on their ``model`` split: the mLSTM
+    kernel on the rank's value rows; the group's collectives move
+    nothing, so the values are not checked here: the CPU tests hold them
+    on gloo ranks).  Returns the launches and the kernel calls the
+    prefill's trace records."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          place_abstract)
+    with dryrun.fake_world(mesh.size):
+        dm = mesh_lib.device_mesh(mesh, dev.type)
+        pfn, psds = make_prefill_step(cfg, dm, InputShape("p", S, B,
+                                                          "prefill"))
+        traced = hlo_analysis.trace(
+            pfn, psds, "cuda", dmesh=dm,
+            place=lambda a, d: place_abstract("prefill", pfn, a, dm,
+                                              d))["counts"]["kernel_calls"]
+        params, batch = place_abstract("prefill", pfn, psds, dm, dev)
+        gen = torch.Generator(dev).manual_seed(1)
+        fill_random(params, gen, dev)
+        for v in batch.values():
+            loc = v.to_local()
+            loc.copy_(torch.randint(0, cfg.vocab_size, loc.shape,
+                                    generator=gen, device=dev,
+                                    dtype=loc.dtype))
+        ops.reset_launches()
+        _, caches = pfn(params, batch)
+        sfn, ssds = make_serve_step(cfg, dm, InputShape("d", S, B,
+                                                        "decode"))
+        _, _, tok, pos = place_abstract("decode", sfn, ssds, dm, dev)
+        tok.to_local().copy_(torch.randint(
+            0, cfg.vocab_size, tok.to_local().shape, generator=gen,
+            device=dev, dtype=tok.dtype))
+        pos.to_local().fill_(S)
+        sfn(params, caches, tok, pos)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    return launches, traced
+
+
 def check_rank0(arch, st):
     """Phase 21 (a)'s gates on one ``run_rank0``: traced and counted
     per-device dot FLOPs equal as integers, argument bytes equal, the
@@ -3227,8 +3383,11 @@ def run_nccl_world(tmp):
 def run_sharded(dev):
     """Phase 21: (a) rank 0 of the (16, 16) mesh at internlm2-1.8b's and
     qwen2-72b's train_4k, full width and depth, and reduced xlstm-1.3b as
-    rank 0 of a (2, 2) mesh (its mLSTM kernel on 2 of its 4 heads); (b)
-    the NCCL world.  Returns (launches of the whole phase, stats)."""
+    rank 0 of a (2, 2) mesh (its mLSTM blocks on the rank's value rows),
+    whose prefill and decode run too (c); the mLSTM kernel at the ranks'
+    value splits; rank 0's decode_32k at zamba2-7b and xlstm-1.3b, full
+    width and depth (b); the NCCL world.  Returns (launches of the whole
+    phase, stats)."""
     import tempfile
     from repro_torch.configs import INPUT_SHAPES, get_config, get_reduced
     from repro_torch.configs.base import InputShape
@@ -3249,11 +3408,20 @@ def run_sharded(dev):
         st["flash_check"] = check_rank_flash(gen, dev, st["flash_shape"])
         stats[arch] = st
     small = mesh_lib.make_mesh(*SH_SMALL_MESH)
-    st = run_rank0(dev, get_reduced(XARCH).replace(dtype="bfloat16"), small,
-                   InputShape("t", 128, 4, "train"))
+    xcfg = get_reduced(XARCH).replace(dtype="bfloat16")
+    st = run_rank0(dev, xcfg, small, InputShape("t", 128, 4, "train"))
     check_rank0(XARCH, st)
     add(st["launches"])
+    la, traced = run_small_serve(dev, xcfg, small)
+    n = xcfg.block_pattern.count("mlstm") * xcfg.num_super
+    assert traced == {"mlstm_chunkwise": n}, traced
+    assert {k: v for k, v in la.items() if v} == traced, (la, traced)
+    add(la)
+    st["serve_launches"] = la
     stats[XARCH] = st
+    stats["mlstm_check"] = check_rank_mlstm(gen, dev)
+    for arch, bound in SH_DECODE:
+        stats[f"{arch}/decode_32k"] = run_rank0_decode(dev, arch, bound)
     with tempfile.TemporaryDirectory() as tmp:
         rec = run_nccl_world(tmp)
     add(rec["launches"])
@@ -3980,6 +4148,36 @@ def main() -> int:
                   f"of {rows} rows) vs autograd of the plain route over "
                   f"the whole batch: worst {worst:.3e} of each leaf's "
                   f"largest (tol 1e-4)")
+    la_s = sh[XARCH]["serve_launches"]
+    print(f"[sharded] (c) reduced {XARCH} prefill (128 tokens x 4) and one "
+          f"decode step as rank 0 of (2, 2), its mLSTM kernel on the rank's "
+          f"32 of 64 value rows: launches {json.dumps(la_s)} (the trace "
+          f"records the same)")
+    err, worst = sh["mlstm_check"]
+    errs["mlstm_chunkwise"] = max(errs["mlstm_chunkwise"], err)
+    print(f"[sharded] (a) mLSTM kernel at the ranks' value splits "
+          f"(B, H, S, dk, dv, chunk) {SH_MLSTM}: h and final (C, n, m) vs "
+          f"plain max abs {err:.3e} (tol 1e-4 of each output's largest); "
+          f"f32 gradients of every input vs autograd of the plain version: "
+          f"worst {worst:.3e} of each leaf's largest (tol 1e-4)")
+    for arch, bound in SH_DECODE:
+        st = sh[f"{arch}/decode_32k"]
+        rec = st["rec"]
+        print(f"[sharded] (b) {arch} decode_32k as rank 0 of (16, 16), full "
+              f"width and depth: dot_redundancy x{rec['dot_redundancy']:.3f}"
+              f" (at most x{bound}); per_device_dot_flops traced "
+              f"{rec['per_device_dot_flops']:.0f} == counted over the real "
+              f"step {st['real_dot_flops']:.0f}; predicted per-device bytes "
+              f"{st['predicted_bytes']:,} (args "
+              f"{rec['per_device_argument_bytes']:,} + temp "
+              f"{rec['per_device_temp_bytes']:,}; counted temp "
+              f"{st['real_temp_bytes']:,}) vs measured "
+              f"{st['measured_bytes']:,}: {100 * st['rel_diff']:.2f}% apart "
+              f"(tol {100 * MEM_TOL:.0f}%); collectives the rank would move "
+              f"{rec['per_device_collective_bytes']:,.0f} B; rank GiB "
+              f"{rec['per_device_mem_bytes'] / 2**30:.2f}; traces "
+              f"{rec['lower_s']} + {rec['per_device_trace_s']} s; step "
+              f"{st['step_ms']:.3f} ms, compute only | {card_line()}")
     rec = sh["nccl"]
     print(f"[sharded] (b) NCCL world of {torch.cuda.device_count()} "
           f"rank(s), mesh {tuple(rec['mesh'])}, reduced {ARCH} HAR step: "

@@ -10,18 +10,25 @@
 // src/repro_torch/kernels/ref.py::mlstm_chunkwise_ref (the chunk math of
 // src/repro_torch/models/ssm.py::_mlstm_chunk).
 //
+// Value width.  q and k have dk dims, v and h dv <= dk: a sharded step
+// runs the block on a rank's share of every head's value rows (dk 512 and
+// dv 32 for xlstm-1.3b over 16 ranks), and C (dv x dk) holds those rows.
+// Each value row contracts with all of dk, so the kernel on dv rows
+// computes exactly those rows of what it computes at dv = dk: n, m and
+// the scale dk^-1/2 are the whole head's.  The TPU kernel has one dh.
+//
 // Per chunk of L steps, with b the in-chunk cumsum of log_f:
 //   lw[t,s]  = b_t - b_s + log_i_s (s <= t; masked otherwise)
 //   m_t      = max(m_prev + b_t, max_s lw[t,s])
-//   P[t,s]   = (q_t . k_s) * dh^-1/2 * exp(lw[t,s] - m_t)
-//   h_t      = (sum_s P[t,s] v_s + w_t dh^-1/2 q_t C^T)
-//              / max(|sum_s P[t,s] + w_t dh^-1/2 q_t . n_prev|, exp(-m_t))
+//   P[t,s]   = (q_t . k_s) * dk^-1/2 * exp(lw[t,s] - m_t)
+//   h_t      = (sum_s P[t,s] v_s + w_t dk^-1/2 q_t C^T)
+//              / max(|sum_s P[t,s] + w_t dk^-1/2 q_t . n_prev|, exp(-m_t))
 //              with w_t = exp(m_prev + b_t - m_t);
 //   then the chunk-end update of C (stored v (x) k), n and m.
 //
 // What bounds it on an H100: operations.  Per (b, h, chunk) it needs
-// 2 L^2 dh for q k^T, 2 L^2 dh for P v and 4 L dh^2 for q C^T and the C
-// update (the causal mask halves the first two); at dh = 512, L = 256 that
+// 2 L^2 dk for q k^T, 2 L^2 dv for P v and 4 L dv dk for q C^T and the C
+// update (the causal mask halves the first two); at dk = dv = 512, L = 256 that
 // is ~100x more flops than bytes, far above the machine balance.  The gate
 // is 1e-4 of each output's largest magnitude over reductions 256-512 deep,
 // which one TF32 pass (~2^-11 a product) does not keep, so the four
@@ -41,44 +48,44 @@
 // P v and the C update contract over the key axis, so v and k are
 // transposed while staging.
 //
-// Design.  C is dh x dh f32, 1 MB at dh = 512, so no block holds a
+// Design.  C is dv x dk f32, 1 MB at dk = dv = 512, so no block holds a
 // (b, h)'s state; the TPU's grid (B*H blocks) would also fill only 16 of
 // 132 SMs.  Four launches, the last three one warpgroup (128 threads) a
 // block:
-//   1. gates, one block per (b, h, 32 columns of n): the in-chunk cumsum
+//   1. gates, one block per (b, h, 32 of n's dk columns): the in-chunk cumsum
 //      b (a warp scan), m_prev of each chunk, the chunk-end m, weights w_c
 //      and decay (every block computes them, the first stores them), and n
 //      carried across chunks for the block's columns, with n before each
-//      chunk stored for launch 2.  O(S dh) work a (b, h), fp32 pipe.
+//      chunk stored for launch 2.  O(S dk) work a (b, h), fp32 pipe.
 //   2. scores, one block per (b, h, chunk, 64 queries, 64 keys), tiles
-//      above the diagonal absent: S = q k^T on the tensor cores over dh;
+//      above the diagonal absent: S = q k^T on the tensor cores over dk;
 //      m_t from the exact row max of lw; writes the tile of P (B*H, S, L)
 //      to a scratch tensor and adds its row sums to a per-step vector
 //      (atomics, one a row a tile).  The first key tile's blocks store w_t
 //      and m_t and q_t . n_prev (from the staged q rows).  This is the only
-//      part that needs all of dh for a (t, s) pair, so it is computed
+//      part that needs all of dk for a (t, s) pair, so it is computed
 //      once, not once per tile of v's dims.
-//   3. state, one block per (b, h, 64 rows d of C, 128 columns e): the
-//      tile of C stays in the block's accumulators across the chunks:
+//   3. state, one block per (b, h, 64 rows d < dv of C, 128 columns
+//      e < dk): the tile of C stays in the block's accumulators across the chunks:
 //      C = decay C + (w_c v)^T k per chunk (M = d, N = e, K = the chunk's
 //      keys); the state before each chunk after the first goes to a
-//      scratch (B*H, chunks - 1, dh, dh), and the last to C.
+//      scratch (B*H, chunks - 1, dv, dk), and the last to C.
 //   4. output, one block per (b, h, chunk, 64 queries, 128 of v's dims):
-//      P v over the causal prefix, then (w_t dh^-1/2 q) C^T over dh, into
-//      one accumulator, divided by max(|row sum of P + w_t dh^-1/2
+//      P v over the causal prefix, then (w_t dk^-1/2 q) C^T over dk, into
+//      one accumulator, divided by max(|row sum of P + w_t dk^-1/2
 //      q_t . n_prev|, exp(-m_t)).  Chunks run in parallel: each reads the
 //      state before it from launch 3.  A block reads only its 64 rows of P
-//      and q, so each row of them is read by dh / 128 blocks (4 at
-//      dh = 512; the fp32 kernel this replaces read all of P and q in each
-//      of its dh / 32 = 16 row-tile blocks).
+//      and q, so each row of them is read by dv / 128 blocks (4 at
+//      dv = 512; the fp32 kernel this replaces read all of P and q in each
+//      of its dv / 32 = 16 row-tile blocks).
 // Staging goes global -> registers -> shared memory, one 32-deep slice at
 // a time (12 wgmma a slice in launches 3 and 4), the next slice's loads
 // issued before this slice's MMAs; there is no TMA ring.  The transposed
 // operands (v and k read along the dims) pass through a padded raw slice
 // so that both the loads and the swizzled stores hit 32 banks.
 // Masked entries never reach exp(): P is 0 there, so no NaN; rows past L
-// and columns past dh stage as 0 and are never stored, so a chunk of
-// L = 1 (a one-token prompt) and dh = 32 work.  The chunk length is a
+// and columns past dk or dv stage as 0 and are never stored, so a chunk
+// of L = 1 (a one-token prompt) and dv = 32 work.  The chunk length is a
 // runtime value.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,7 +108,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------- 1 ------
-// grid (ceil(dh / 32), B*H).  Dynamic shared memory: bc[L], li[L], wc[L].
+// grid (ceil(dk / 32), B*H).  Dynamic shared memory: bc[L], li[L], wc[L].
 // Every block runs the scalar gate scan of its (b, h) (O(S), cheap); the
 // first block of each (b, h) stores it.  Each block carries n for 32
 // columns e, a warp a column each, its 8 warps summing interleaved steps.
@@ -112,7 +119,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_gates_kernel(
     float* __restrict__ m_out, float* __restrict__ nst,
     float* __restrict__ bcum, float* __restrict__ wc_g,
     float* __restrict__ mprev_g, float* __restrict__ decay_g,
-    float* __restrict__ rowsum, int S, int L, int dh) {
+    float* __restrict__ rowsum, int S, int L, int dk) {
   extern __shared__ float sm[];
   float* bc = sm;
   float* li = bc + L;
@@ -125,7 +132,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_gates_kernel(
   const int col = lane, part = warp;
   const int e = blockIdx.x * 32 + col;
   const int nc = S / L;
-  float n = e < dh ? n0[bh * dh + e] : 0.0f;
+  float n = e < dk ? n0[bh * dk + e] : 0.0f;
   float m = m0[bh];
   for (int c = 0; c < nc; ++c) {
     const long long base = bh * S + (long long)c * L;
@@ -182,14 +189,14 @@ __global__ void __launch_bounds__(THREADS) mlstm_gates_kernel(
     }
     const float decay = expf((m + bl) - m_new);
     if (lead && tid == 0) decay_g[bh * nc + c] = decay;
-    if (part == 0 && e < dh) nst[(bh * nc + c) * dh + e] = n;   // before c
+    if (part == 0 && e < dk) nst[(bh * nc + c) * dk + e] = n;   // before c
     __syncthreads();   // wc complete
     float acc = 0.0f;
-    if (e < dh) {
-      const float* kc = k + base * dh + e;
+    if (e < dk) {
+      const float* kc = k + base * dk + e;
 #pragma unroll 8
       for (int s = part; s < L; s += THREADS / 32)
-        acc = fmaf(wc[s], kc[(long long)s * dh], acc);
+        acc = fmaf(wc[s], kc[(long long)s * dk], acc);
     }
     npart[part][col] = acc;
     __syncthreads();
@@ -200,7 +207,7 @@ __global__ void __launch_bounds__(THREADS) mlstm_gates_kernel(
     m = m_new;
     __syncthreads();   // bc, li, wc, npart reused by the next chunk
   }
-  if (part == 0 && e < dh) n_out[bh * dh + e] = n;
+  if (part == 0 && e < dk) n_out[bh * dk + e] = n;
   if (lead && tid == 0) m_out[bh] = m;
 }
 
@@ -346,7 +353,7 @@ __global__ void __launch_bounds__(WG) mlstm_scores_kernel(
     const float* __restrict__ mprev_g, const float* __restrict__ nst,
     float* __restrict__ P, float* __restrict__ coef,
     float* __restrict__ mrow_g, float* __restrict__ rowsum,
-    float* __restrict__ qn_g, int S, int L, int dh, float scale) {
+    float* __restrict__ qn_g, int S, int L, int dk, float scale) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* Bs = reinterpret_cast<float*>(smem);
   float* As = Bs + KSTEPS * 2 * 64 * 8;
@@ -385,7 +392,7 @@ __global__ void __launch_bounds__(WG) mlstm_scores_kernel(
       }
     }
   }
-  // S = q k^T over dh: q rows t0.., k rows s0.. (K-major as stored)
+  // S = q k^T over dk: q rows t0.., k rows s0.. (K-major as stored)
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
@@ -394,18 +401,18 @@ __global__ void __launch_bounds__(WG) mlstm_scores_kernel(
 #pragma unroll
     for (int j = 0; j < TM * KC / 4 / WG; ++j) {
       const int i = tid + WG * j, r = i / (KC / 4), c4 = i % (KC / 4) * 4;
-      rq[j] = t0 + r < L ? ld4(q + (base + t0 + r) * dh + e0 + c4) : zero4();
-      rk[j] = s0 + r < L ? ld4(k + (base + s0 + r) * dh + e0 + c4) : zero4();
+      rq[j] = t0 + r < L ? ld4(q + (base + t0 + r) * dk + e0 + c4) : zero4();
+      rk[j] = s0 + r < L ? ld4(k + (base + s0 + r) * dk + e0 + c4) : zero4();
     }
   };
   // q_t . n_prev on the way, in the first key tile's blocks: a row's 8
   // lanes, rows (tid / 8) + 16 j
-  const float* np = nst + (bh * nc + c) * dh;
+  const float* np = nst + (bh * nc + c) * dk;
   float qd[TM * KC / 4 / WG];
 #pragma unroll
   for (int j = 0; j < TM * KC / 4 / WG; ++j) qd[j] = 0.0f;
   load(0);
-  for (int e0 = 0; e0 < dh; e0 += KC) {
+  for (int e0 = 0; e0 < dk; e0 += KC) {
 #pragma unroll
     for (int j = 0; j < TM * KC / 4 / WG; ++j) {
       const int i = tid + WG * j, r = i / (KC / 4), c4 = i % (KC / 4) * 4;
@@ -415,7 +422,7 @@ __global__ void __launch_bounds__(WG) mlstm_scores_kernel(
     }
     wg::fence_shared();
     __syncthreads();
-    if (e0 + KC < dh) load(e0 + KC);
+    if (e0 + KC < dk) load(e0 + KC);
     mma_slice<64, false>(acc, As, Bs);
     __syncthreads();
   }
@@ -459,13 +466,13 @@ __global__ void __launch_bounds__(WG) mlstm_scores_kernel(
 }
 
 // ---------------------------------------------------------------- 3 ------
-// grid (ceil(dh / TM), ceil(dh / NE), B*H).  Dynamic shared memory: B
+// grid (ceil(dv / TM), ceil(dk / NE), B*H).  Dynamic shared memory: B
 // [KSTEPS][2][NE][8], A [KC][ATP] (depth-major), raw [KC][NE + 4].
 __global__ void __launch_bounds__(WG) mlstm_cstate_kernel(
     const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ C0, const float* __restrict__ wc_g,
     const float* __restrict__ decay_g, float* __restrict__ Cst,
-    float* __restrict__ C_out, int S, int L, int dh) {
+    float* __restrict__ C_out, int S, int L, int dk, int dv) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* Bs = reinterpret_cast<float*>(smem);
   float* At = Bs + KSTEPS * 2 * NE * 8;
@@ -474,14 +481,14 @@ __global__ void __launch_bounds__(WG) mlstm_cstate_kernel(
   const int d0 = blockIdx.x * TM, e0 = blockIdx.y * NE;
   const long long bh = blockIdx.z;
   const int nc = S / L;
-  const long long cs = (long long)dh * dh;
+  const long long cs = (long long)dv * dk;
   // acc: C[d0 + row][e0 + col], pairs of adjacent columns
   float acc[NE / 2];
 #pragma unroll
   for (int i = 0; i < NE / 2; i += 2) {
     const int d = d0 + acc_row(i), e = e0 + acc_col(i);
-    const float2 x = d < dh && e < dh
-        ? *reinterpret_cast<const float2*>(C0 + bh * cs + (long long)d * dh + e)
+    const float2 x = d < dv && e < dk
+        ? *reinterpret_cast<const float2*>(C0 + bh * cs + (long long)d * dk + e)
         : make_float2(0.0f, 0.0f);
     acc[i] = x.x;
     acc[i + 1] = x.y;
@@ -495,8 +502,8 @@ __global__ void __launch_bounds__(WG) mlstm_cstate_kernel(
 #pragma unroll
       for (int i = 0; i < NE / 2; i += 2) {
         const int d = d0 + acc_row(i), e = e0 + acc_col(i);
-        if (d < dh && e < dh)
-          *reinterpret_cast<float2*>(Co + (long long)d * dh + e) =
+        if (d < dv && e < dk)
+          *reinterpret_cast<float2*>(Co + (long long)d * dk + e) =
               make_float2(acc[i], acc[i + 1]);
       }
     }
@@ -510,15 +517,15 @@ __global__ void __launch_bounds__(WG) mlstm_cstate_kernel(
 #pragma unroll
       for (int j = 0; j < JV; ++j) {
         const int i = tid + WG * j, kk = i / (TM / 4), m4 = i % (TM / 4) * 4;
-        const bool ok = s0 + kk < L && d0 + m4 < dh;
-        rv[j] = ok ? ld4(v + (base + s0 + kk) * dh + d0 + m4) : zero4();
+        const bool ok = s0 + kk < L && d0 + m4 < dv;
+        rv[j] = ok ? ld4(v + (base + s0 + kk) * dv + d0 + m4) : zero4();
         rw[j] = ok ? wc_g[base + s0 + kk] : 0.0f;
       }
 #pragma unroll
       for (int j = 0; j < JK; ++j) {
         const int i = tid + WG * j, kk = i / (NE / 4), n4 = i % (NE / 4) * 4;
-        rk[j] = s0 + kk < L && e0 + n4 < dh
-            ? ld4(k + (base + s0 + kk) * dh + e0 + n4) : zero4();
+        rk[j] = s0 + kk < L && e0 + n4 < dk
+            ? ld4(k + (base + s0 + kk) * dk + e0 + n4) : zero4();
       }
     };
     load(0);
@@ -545,14 +552,14 @@ __global__ void __launch_bounds__(WG) mlstm_cstate_kernel(
 #pragma unroll
   for (int i = 0; i < NE / 2; i += 2) {
     const int d = d0 + acc_row(i), e = e0 + acc_col(i);
-    if (d < dh && e < dh)
-      *reinterpret_cast<float2*>(C_out + bh * cs + (long long)d * dh + e) =
+    if (d < dv && e < dk)
+      *reinterpret_cast<float2*>(C_out + bh * cs + (long long)d * dk + e) =
           make_float2(acc[i], acc[i + 1]);
   }
 }
 
 // ---------------------------------------------------------------- 4 ------
-// grid (ceil(dh / ND), ceil(L / TM), B*H*chunks).  Dynamic shared memory:
+// grid (ceil(dv / ND), ceil(L / TM), B*H*chunks).  Dynamic shared memory:
 // B [KSTEPS][2][ND][8], A [TM][KC], raw [KC][ND + 4].
 __global__ void __launch_bounds__(WG) mlstm_out_kernel(
     const float* __restrict__ q, const float* __restrict__ v,
@@ -560,7 +567,7 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
     const float* __restrict__ P, const float* __restrict__ coef,
     const float* __restrict__ mrow_g, const float* __restrict__ rowsum,
     const float* __restrict__ qn, float* __restrict__ h, int S, int L,
-    int dh, float scale) {
+    int dk, int dv, float scale) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* Bs = reinterpret_cast<float*>(smem);
   float* As = Bs + KSTEPS * 2 * ND * 8;
@@ -571,7 +578,7 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
   const long long bh = blockIdx.z / nc;
   const int c = blockIdx.z % nc;
   const long long base = bh * S + (long long)c * L;
-  const long long cs = (long long)dh * dh;
+  const long long cs = (long long)dv * dk;
   const float* Cc = c == 0 ? C0 + bh * cs : Cst + (bh * (nc - 1) + c - 1) * cs;
   float acc[ND / 2];
 #pragma unroll
@@ -592,8 +599,8 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
 #pragma unroll
     for (int j = 0; j < JV; ++j) {
       const int i = tid + WG * j, kk = i / (ND / 4), n4 = i % (ND / 4) * 4;
-      rv[j] = s0 + kk < kend && d0 + n4 < dh
-          ? ld4(v + (base + s0 + kk) * dh + d0 + n4) : zero4();
+      rv[j] = s0 + kk < kend && d0 + n4 < dv
+          ? ld4(v + (base + s0 + kk) * dv + d0 + n4) : zero4();
     }
   };
   load_pv(0);
@@ -617,7 +624,7 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
     __syncthreads();
   }
 
-  // (w_t dh^-1/2 q_t) C^T over dh: C's rows as stored are B's K-major
+  // (w_t dk^-1/2 q_t) C^T over dk: C's rows as stored are B's K-major
   // rows, read two lanes to a 32-byte k-step
   constexpr int JQ = TM * KC / 4 / WG, JC = ND * KC / 4 / WG;
   float4 rq[JQ], rc[JC];
@@ -631,18 +638,18 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
 #pragma unroll
     for (int j = 0; j < JQ; ++j) {
       const int i = tid + WG * j, r = i / (KC / 4), c4 = i % (KC / 4) * 4;
-      rq[j] = t0 + r < L ? ld4(q + (base + t0 + r) * dh + e0 + c4) : zero4();
+      rq[j] = t0 + r < L ? ld4(q + (base + t0 + r) * dk + e0 + c4) : zero4();
     }
 #pragma unroll
     for (int j = 0; j < JC; ++j) {
       const int i = tid + WG * j, n = (i >> 1) % ND;
       const int c4 = (i / (2 * ND)) * 8 + (i & 1) * 4;
-      rc[j] = d0 + n < dh ? ld4(Cc + (long long)(d0 + n) * dh + e0 + c4)
+      rc[j] = d0 + n < dv ? ld4(Cc + (long long)(d0 + n) * dk + e0 + c4)
                           : zero4();
     }
   };
   load_qc(0);
-  for (int e0 = 0; e0 < dh; e0 += KC) {
+  for (int e0 = 0; e0 < dk; e0 += KC) {
 #pragma unroll
     for (int j = 0; j < JQ; ++j) {
       const int i = tid + WG * j, r = i / (KC / 4), c4 = i % (KC / 4) * 4;
@@ -655,19 +662,19 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
     }
     wg::fence_shared();
     __syncthreads();
-    if (e0 + KC < dh) load_qc(e0 + KC);
+    if (e0 + KC < dk) load_qc(e0 + KC);
     mma_slice<ND, false>(acc, As, Bs);
     __syncthreads();
   }
-  // h = (P v + w q C^T) / max(|sum_s P + w dh^-1/2 q . n|, exp(-m))
+  // h = (P v + w q C^T) / max(|sum_s P + w dk^-1/2 q . n|, exp(-m))
 #pragma unroll
   for (int i = 0; i < ND / 2; i += 2) {
     const int t = t0 + acc_row(i), d = d0 + acc_col(i);
-    if (t < L && d < dh) {
+    if (t < L && d < dv) {
       const long long st = base + t;
       const float den = fmaxf(fabsf(rowsum[st] + coef[st] * (scale * qn[st])),
                               expf(-mrow_g[st]));
-      *reinterpret_cast<float2*>(h + st * dh + d) =
+      *reinterpret_cast<float2*>(h + st * dv + d) =
           make_float2(acc[i] / den, acc[i + 1] / den);
     }
   }
@@ -675,22 +682,24 @@ __global__ void __launch_bounds__(WG) mlstm_out_kernel(
 
 }  // namespace
 
-// Shapes: q, k, v, h (BH, S, dh); log_i, log_f (BH, S); C0, C (BH, dh, dh);
-// n0, n (BH, dh); m0, m (BH,).  Scratch: P (BH, S, L); Cst (BH, S / L - 1,
-// dh, dh) (unused when S == L); nst (BH, S / L, dh); bcum, wc, coef, mrow,
-// rowsum, qn (BH, S); mprev, decay (BH, S / L).  All f32, contiguous, 16-byte
-// aligned.  Needs S % L == 0, dh % 32 == 0 and 32 <= dh <= 512.
+// Shapes: q, k (BH, S, dk); v, h (BH, S, dv); log_i, log_f (BH, S); C0, C
+// (BH, dv, dk); n0, n (BH, dk); m0, m (BH,).  Scratch: P (BH, S, L); Cst
+// (BH, S / L - 1, dv, dk) (unused when S == L); nst (BH, S / L, dk); bcum,
+// wc, coef, mrow, rowsum, qn (BH, S); mprev, decay (BH, S / L).  All f32, contiguous, 16-byte
+// aligned.  Needs S % L == 0, dk and dv multiples of 32, and
+// 32 <= dv <= dk <= 512.
 extern "C" int mlstm_chunkwise_launch(
     const float* q, const float* k, const float* v, const float* log_i,
     const float* log_f, const float* C0, const float* n0, const float* m0,
     float* h, float* C, float* n, float* m, float* P, float* Cst, float* nst,
     float* bcum, float* wc, float* coef, float* mrow, float* rowsum,
-    float* qn, float* mprev, float* decay, int BH, int S, int L, int dh,
-    void* stream) {
-  if (BH < 1 || S < 1 || L < 1 || S % L || dh % 32 || dh < 32 || dh > 512)
+    float* qn, float* mprev, float* decay, int BH, int S, int L, int dk,
+    int dv, void* stream) {
+  if (BH < 1 || S < 1 || L < 1 || S % L || dk % 32 || dv % 32 || dv < 32 ||
+      dv > dk || dk > 512)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)dh);
+  const float scale = 1.0f / sqrtf((float)dk);
   const int nc = S / L, nt = (L + TM - 1) / TM;
   const size_t sm1 = sizeof(float) * 3 * (size_t)L;
   const size_t sm2 = sizeof(float) * (KSTEPS * 2 * 64 * 8 + TM * KC + 2 * (size_t)L);
@@ -710,18 +719,18 @@ extern "C" int mlstm_chunkwise_launch(
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)sm4)) != cudaSuccess)
     return (int)err;
-  mlstm_gates_kernel<<<dim3((dh + 31) / 32, BH), THREADS, sm1, st>>>(
+  mlstm_gates_kernel<<<dim3((dk + 31) / 32, BH), THREADS, sm1, st>>>(
       k, log_i, log_f, n0, m0, n, m, nst, bcum, wc, mprev, decay, rowsum, S,
-      L, dh);
+      L, dk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   mlstm_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc, BH), WG, sm2, st>>>(
-      q, k, log_i, bcum, mprev, nst, P, coef, mrow, rowsum, qn, S, L, dh,
+      q, k, log_i, bcum, mprev, nst, P, coef, mrow, rowsum, qn, S, L, dk,
       scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_cstate_kernel<<<dim3((dh + TM - 1) / TM, (dh + NE - 1) / NE, BH), WG,
-                        sm3, st>>>(k, v, C0, wc, decay, Cst, C, S, L, dh);
+  mlstm_cstate_kernel<<<dim3((dv + TM - 1) / TM, (dk + NE - 1) / NE, BH), WG,
+                        sm3, st>>>(k, v, C0, wc, decay, Cst, C, S, L, dk, dv);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_out_kernel<<<dim3((dh + ND - 1) / ND, nt, BH * nc), WG, sm4, st>>>(
-      q, v, C0, Cst, P, coef, mrow, rowsum, qn, h, S, L, dh, scale);
+  mlstm_out_kernel<<<dim3((dv + ND - 1) / ND, nt, BH * nc), WG, sm4, st>>>(
+      q, v, C0, Cst, P, coef, mrow, rowsum, qn, h, S, L, dk, dv, scale);
   return (int)cudaGetLastError();
 }

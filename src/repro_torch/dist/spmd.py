@@ -12,12 +12,16 @@ redistribution in and a wrap back out:
   query heads over ``model`` where the head count divides it; the kernel
   then takes local tensors, as a ctypes launch must;
 * the recurrent blocks (:func:`local_region`): the batch over the batch
-  axes, everything else gathered, as XLA computes an op whose operand it
-  cannot split; the mLSTM kernel inside such a region
-  (:func:`heads_over_model`, given the region) has its heads split over
-  ``model`` and gathered after, and a Mamba2 block with no state runs on
-  the rank's heads throughout, its sums over ``model`` through
-  :func:`region_sum` and :func:`region_grad_sum`;
+  axes, and each block's work split over ``model`` as its state is (a
+  :class:`Region` says how far): Mamba2 on its heads, or with a state on
+  its head dim p; the mLSTM on its value rows; the sLSTM's projections,
+  and its recurrence on its heads where the cache splits them.  Each
+  weight comes cut to the entries the rank computes with (a :class:`Cut`,
+  one all-to-all over ``model``), never gathered whole.  A state leaf
+  placed so is the rank's shard, written in place; the block's
+  activations meet over ``model`` through :func:`region_gather`,
+  :func:`region_sum` and :func:`region_grad_sum`, which pass a tensor
+  unchanged where there is no region (``None``: one card);
 * the mixture-of-experts routing, scatter and gather
   (``models/moe.py``): each rank's groups, the expert products on
   DTensors.
@@ -27,8 +31,9 @@ code with no mesh.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 BATCH_AXES = ("pod", "data")
@@ -299,6 +304,15 @@ def vocab_xent(logits, labels):
             wrap(picked, dmesh, bpl, labels.shape))
 
 
+def _rms_norm_of_part(scale, x, width: int, eps: float, total):
+    """``layers.rms_norm`` over ``width`` features of which ``x`` holds a
+    part (``scale`` their entries): ``total`` completes this rank's sums
+    of squares, a value a row, into the whole row's."""
+    x32 = x.float()
+    ss = total(torch.sum(torch.square(x32), -1, keepdim=True))
+    return (x32 * torch.rsqrt(ss / width + eps) * scale).to(x.dtype)
+
+
 def rms_norm_split(scale, x, eps: float):
     """``layers.rms_norm`` of DTensor ``x`` whose features (last dim) are
     split: each rank sums its squares and one all-reduce of a value a row
@@ -309,15 +323,15 @@ def rms_norm_split(scale, x, eps: float):
     dm = x.device_mesh
     last = x.ndim - 1
     md = sharded_dims(x, last)
-    x32 = x.to_local().float()
     pl = [Partial() if i in md else p for i, p in enumerate(x.placements)]
-    ss = wrap(torch.sum(torch.square(x32), -1, keepdim=True), dm, pl,
-              tuple(x.shape[:-1]) + (1,))
-    tot = layout(ss, reduced(pl)).to_local(grad_placements=pl)
-    y = x32 * torch.rsqrt(tot / x.shape[-1] + eps)
+
+    def total(ss):
+        ss = wrap(ss, dm, pl, tuple(x.shape[:-1]) + (1,))
+        return layout(ss, reduced(pl)).to_local(grad_placements=pl)
     sc = local(scale, dm, placements(dm, {0: list(md)}),
                sharded_dims(x, 0))
-    return wrap((y * sc).to(x.dtype), dm, x.placements, x.shape)
+    y = _rms_norm_of_part(sc, x.to_local(), x.shape[-1], eps, total)
+    return wrap(y, dm, x.placements, x.shape)
 
 
 # --------------------------------------------------------------- linears ---
@@ -470,40 +484,190 @@ class HeadLayout:
 
 
 # --------------------------------------------------------- local regions ---
-def local_region(fn, dmesh, bdims, batched: Sequence, whole: Sequence,
-                 states: Sequence = (), shared: Sequence = ()):
-    """``fn(region, *batched, *whole, *shared, *states)`` on this rank's
-    local tensors, ``region`` the pair (``dmesh``, ``bdims``): each
-    of ``batched`` (DTensors or plain tensors, leading dim the batch) cut
-    to the rank's batch rows over the mesh dims ``bdims``, each leaf of
-    the trees in ``whole`` gathered, each of ``shared`` gathered too but
-    its gradient summed over ``model`` as well (each ``model`` rank
-    computes on its share of it), and each node of ``states`` (a
-    NamedTuple of DTensors whose batch dim is 0, or None) cut like the
-    batch; ``fn`` may write a state's leaves in place, and what it wrote
-    is written back to the DTensors.  ``fn`` returns one tensor of
-    leading dim the batch, or a tuple whose first entry is one; that
-    entry comes back a DTensor of the batch placement, the rest as they
-    are."""
+class Region(NamedTuple):
+    """Where a block of a local region runs: the ``DeviceMesh``, the mesh
+    dims the batch rows split over, and ``split``, the number of ``model``
+    ranks that share the block's work (1: every rank runs all of it)."""
+    dmesh: object
+    bdims: tuple
+    split: int
+
+    @property
+    def rank(self) -> int:
+        """This rank's share of the block's work: its ``model``
+        coordinate."""
+        return axis_coord(self.dmesh, "model")
+
+
+class Cut(NamedTuple):
+    """The entries of a weight each ``model`` rank of a local region
+    computes with: along ``dim``, row ``r`` of ``index`` (a (split, n)
+    int array, each row increasing) for the rank of ``model`` coordinate
+    ``r``."""
+    dim: int
+    index: np.ndarray
+
+
+_PLANS: dict = {}
+
+
+def _a2a_plan(cut: Cut, k: int, c: int, r: int) -> tuple:
+    """How rank ``r`` cuts a weight split over ``model`` in blocks of
+    ``c`` along dim ``k`` by ``cut``: (the indices into its shard along
+    ``cut.dim`` that it sends, in rank order, the count it sends each
+    rank, the count it receives from each, whether every rank's cut lies
+    in its own shard).  Kept a ``cut`` (``ssm``'s cut builders return the
+    same ones each call), so a step pays for it once."""
+    key = (id(cut), k, c, r)
+    if key not in _PLANS:
+        m = len(cut.index)
+        if k == cut.dim:
+            def part(ix, s):
+                return ix[(ix >= s * c) & (ix < (s + 1) * c)] - s * c
+            sends = [part(ix, r) for ix in cut.index]
+            recv = [len(part(cut.index[r], s)) for s in range(m)]
+            own = all(len(part(ix, q)) == len(ix)
+                      for q, ix in enumerate(cut.index))
+        else:
+            sends, own = list(cut.index), False
+            recv = [cut.index.shape[1]] * m
+        _PLANS[key] = (cut, np.concatenate(sends), [len(x) for x in sends],
+                       recv, own)
+    return _PLANS[key][1:]
+
+
+_INDEX: dict = {}
+
+
+def _index(ix: np.ndarray, t, key) -> torch.Tensor:
+    """``ix`` as an index tensor on ``t``'s device, copied there once for
+    ``key`` (a copy from pageable host memory waits for the stream, so a
+    step that made one a weight would wait for the card hundreds of
+    times); a fake ``t`` (a traced step) gets a fresh one."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        return torch.as_tensor(ix, dtype=torch.long, device=t.device)
+    key = key + (t.device,)
+    if key not in _INDEX:
+        _INDEX[key] = torch.as_tensor(ix, dtype=torch.long, device=t.device)
+    return _INDEX[key]
+
+
+def _cut_weight(w, cut: Cut, dmesh, bdims):
+    """This rank's entries of weight ``w`` (``cut.index[r]`` along
+    ``cut.dim``, ``r`` its ``model`` coordinate), gathered over the other
+    mesh dims, its gradient a partial sum over ``bdims``.  A weight split
+    over ``model`` is cut by one all-to-all there: each rank sends every
+    other the entries of its shard that that rank computes with, so a
+    rank receives its share, never the whole weight, and the gradient
+    goes back the same way, summed on the shard's owner.  A cut that
+    stays in each rank's shard moves nothing.  A weight whole on every
+    ``model`` rank is cut locally, its gradient summed over ``model``."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd)
+    from torch.distributed.tensor import Replicate, Shard
+    md = _names(dmesh).index("model")
+    r = axis_coord(dmesh, "model")
+    p = w.placements[md] if is_dist(w) else Replicate()
+    pl = [Replicate()] * dmesh.ndim
+
+    def take(t, ix, key):
+        return t.index_select(cut.dim, _index(ix, t, key))
+    if not isinstance(p, Shard):
+        return take(local(w, dmesh, pl, tuple(bdims) + (md,)), cut.index[r],
+                    (id(cut), r))
+    pl[md] = p
+    loc = local(w, dmesh, pl, bdims)
+    k, c = p.dim, loc.shape[p.dim]
+    send, n_send, n_recv, own = _a2a_plan(cut, k, c, r)
+    if own and np.array_equal(send, np.arange(c)):
+        return loc
+    # each rank's piece is (entries, the other dims), cut.dim moved first
+    buf = take(loc, send, (id(cut), k, c, r))
+    if own:
+        return buf
+    buf = buf.movedim(cut.dim, 0)
+    rest = tuple(buf.shape[1:])
+    per = int(np.prod(rest))
+    got = all_to_all_single_autograd(
+        buf.reshape(-1), [n * per for n in n_recv],
+        [n * per for n in n_send], dmesh.get_group(md))
+    if k == cut.dim:
+        # the pieces arrive in rank order along the cut dim itself
+        return got.view((sum(n_recv),) + rest).movedim(0, k)
+    # (rank, entries, the other dims): each rank's block goes before k's
+    kk = k - (k > cut.dim)
+    t = got.view((len(n_recv), n_recv[0]) + rest).movedim(0, 1 + kk)
+    return t.flatten(1 + kk, 2 + kk).movedim(0, cut.dim)
+
+
+def _cut_tree(w, cut, dmesh, bdims):
+    """Each tensor leaf of ``w`` cut by its entry of the tree ``cut``
+    (:func:`_cut_weight`), or, where that is None, gathered whole with its
+    gradient summed over ``model`` (each rank computes on its share)."""
     from torch.distributed.tensor import Replicate
+    if isinstance(w, dict):
+        return {k: _cut_tree(v, None if cut is None else cut[k], dmesh,
+                             bdims) for k, v in w.items()}
+    if not isinstance(w, torch.Tensor):
+        return w
+    if cut is None:
+        return local(w, dmesh, [Replicate()] * dmesh.ndim,
+                     tuple(bdims) + (_names(dmesh).index("model"),))
+    return _cut_weight(w, cut, dmesh, bdims)
+
+
+def local_region(fn, dmesh, bdims, batched: Sequence, whole: Sequence,
+                 states: Sequence = (), shared: Sequence = (),
+                 split: int = 1, state_dims: Sequence = (),
+                 cuts: Sequence = ()):
+    """``fn(region, *batched, *whole, *shared, *states)`` on this rank's
+    local tensors, ``region`` the :class:`Region` (``dmesh``, ``bdims``,
+    ``split``): each of ``batched`` (DTensors or plain tensors, leading
+    dim the batch) cut to the rank's batch rows over the mesh dims
+    ``bdims``, each leaf of the trees in ``whole`` gathered, each tree of
+    ``shared`` (one a block, which each ``model`` rank computes on its
+    share of) cut by the matching tree of cuts in ``cuts`` (:class:`Cut`,
+    :func:`_cut_tree`; no entry: every leaf whole), and each node of
+    ``states`` (a NamedTuple of DTensors whose batch dim is 0, or None)
+    cut like the batch and, with ``split`` > 1, leaf ``i`` over ``model``
+    on its dim ``state_dims[j][i]`` (None, or a None entry: whole on every
+    ``model`` rank).  A state leaf already so placed is the rank's shard
+    itself, which ``fn`` writes in place; any other is redistributed in
+    and written back.  ``fn`` returns one tensor of leading dim the
+    batch, or a tuple whose first entry is one; that entry comes back a
+    DTensor of the batch placement, the rest as they are."""
+    from torch.distributed.tensor import Replicate, Shard
     from repro_torch.utils import tree_map
     rep = [Replicate()] * dmesh.ndim
     bpl = placements(dmesh, {0: list(bdims)})
+    mdim = _names(dmesh).index("model") if split > 1 else None
+
+    def want(d):
+        if d is None or mdim is None:
+            return bpl
+        pl = list(bpl)
+        pl[mdim] = Shard(d)
+        return pl
     loc_b = [local(x, dmesh, bpl) for x in batched]
-    shared_over = tuple(bdims) + (_names(dmesh).index("model"),) \
-        if shared else ()
-    loc_w = [tree_map(lambda t, over=over: local(t, dmesh, rep, over)
+    loc_w = [tree_map(lambda t: local(t, dmesh, rep, bdims)
                       if isinstance(t, torch.Tensor) else t, w)
-             for w, over in [(w, bdims) for w in whole]
-             + [(w, shared_over) for w in shared]]
+             for w in whole]
+    loc_w += [_cut_tree(w, c, dmesh, bdims) for w, c in
+              zip(shared, list(cuts) + [None] * len(shared))]
+    state_pls = [None if st is None else
+                 [want(d) for d in (ds or (None,) * len(st))]
+                 for st, ds in zip(states, list(state_dims)
+                                   + [None] * len(states))]
     loc_s = [None if st is None else
-             type(st)(*[local(t, dmesh, bpl) for t in st]) for st in states]
-    out = fn((dmesh, tuple(bdims)), *loc_b, *loc_w, *loc_s)
-    for st, ls in zip(states, loc_s):
+             type(st)(*[local(t, dmesh, pl) for t, pl in zip(st, pls)])
+             for st, pls in zip(states, state_pls)]
+    out = fn(Region(dmesh, tuple(bdims), split), *loc_b, *loc_w, *loc_s)
+    for st, ls, pls in zip(states, loc_s, state_pls):
         if st is None:
             continue
-        for dst, src in zip(st, ls):
-            back = layout(wrap(src, dmesh, bpl, dst.shape),
+        for dst, src, pl in zip(st, ls, pls):
+            back = layout(wrap(src, dmesh, pl, dst.shape),
                           dst.placements).to_local()
             dl = dst.to_local()
             if back.data_ptr() != dl.data_ptr():
@@ -517,25 +681,25 @@ def local_region(fn, dmesh, bdims, batched: Sequence, whole: Sequence,
 def _region_placements(region, partial: bool) -> list:
     """The batch placement of ``region``, partial over ``model`` or not."""
     from torch.distributed.tensor import Partial
-    dmesh, bdims = region
-    pl = placements(dmesh, {0: list(bdims)})
+    pl = placements(region.dmesh, {0: list(region.bdims)})
     if partial:
-        pl[_names(dmesh).index("model")] = Partial()
+        pl[_names(region.dmesh).index("model")] = Partial()
     return pl
 
 
 def _region_shape(t, region) -> tuple:
-    dmesh, bdims = region
     n = t.shape[0]
-    for d in bdims:
-        n *= dmesh.size(d)
+    for d in region.bdims:
+        n *= region.dmesh.size(d)
     return (n,) + tuple(t.shape[1:])
 
 
 def region_grad_sum(t, region):
     """``t`` of the local region ``region``, unchanged; its gradient, of
     which each ``model`` rank computes a share, summed over ``model``."""
-    dmesh = region[0]
+    if region is None:
+        return t
+    dmesh = region.dmesh
     pl = _region_placements(region, False)
     return local(wrap(t, dmesh, pl, _region_shape(t, region)), dmesh, pl,
                  (_names(dmesh).index("model"),))
@@ -545,37 +709,35 @@ def region_sum(t, region, grad_sum: bool = False):
     """``t`` of the local region ``region`` summed over ``model``.  Its
     gradient is the result's (every rank holds the same), or with
     ``grad_sum`` summed over ``model`` too (each rank holds a share)."""
-    dmesh = region[0]
+    if region is None:
+        return t
     pl = _region_placements(region, True)
-    x = layout(wrap(t, dmesh, pl, _region_shape(t, region)), reduced(pl))
+    x = layout(wrap(t, region.dmesh, pl, _region_shape(t, region)),
+               reduced(pl))
     return x.to_local(grad_placements=pl) if grad_sum else x.to_local()
 
 
-def heads_over_model(fn, args: Sequence[torch.Tensor], n_out: int,
-                     region=None):
-    """``fn(*args)`` with dim 1 of every argument (the heads) split over
-    ``model`` and every output's dim 1 gathered back, inside the local
-    region ``region`` ((mesh, batch dims), as :func:`local_region` passes
-    it) when the heads divide ``model``; else ``fn(*args)``.  Every
-    argument and output is (B, H, ...)."""
+def region_gather(t, region, dim: int):
+    """``t`` of the local region ``region`` (leading dim the batch) whose
+    dim ``dim`` each ``model`` rank holds a part of, gathered whole in
+    rank order.  Its gradient, of which each rank computes a share, is
+    summed over ``model`` and cut back to the rank's part (a
+    reduce-scatter)."""
     if region is None:
-        return fn(*args)
-    dmesh, bdims = region
-    m = axis_size(dmesh, "model")
-    H = args[0].shape[1]
-    if m == 1 or H % m:
-        return fn(*args)
-    mdim = _names(dmesh).index("model")
-    nb = 1
-    for d in bdims:
-        nb *= dmesh.size(d)
-    whole = placements(dmesh, {0: list(bdims)})
-    split = placements(dmesh, {0: list(bdims), 1: [mdim]})
-    loc = [layout(wrap(a, dmesh, whole, (a.shape[0] * nb,) + a.shape[1:]),
-                  split).to_local() for a in args]
-    outs = fn(*loc)
-    res = []
-    for o in outs[:n_out]:
-        shape = (o.shape[0] * nb, o.shape[1] * m) + tuple(o.shape[2:])
-        res.append(layout(wrap(o, dmesh, split, shape), whole).to_local())
-    return tuple(res)
+        return t
+    dmesh = region.dmesh
+    shape = list(_region_shape(t, region))
+    shape[dim] *= region.split
+    pl = placements(dmesh, {0: list(region.bdims),
+                            dim: [_names(dmesh).index("model")]})
+    x = layout(wrap(t, dmesh, pl, shape), _region_placements(region, False))
+    return x.to_local(grad_placements=_region_placements(region, True))
+
+
+def region_rms_norm(scale, y, region, width: int, eps: float = 1e-6):
+    """``layers.rms_norm`` over ``width`` features of which ``y`` holds
+    this rank's in the local region ``region`` (``scale`` their entries):
+    one sum over ``model`` of a value a row completes the sums of
+    squares, its gradient summed back the same way."""
+    return _rms_norm_of_part(scale, y, width, eps, lambda ss: region_sum(
+        ss, region, grad_sum=True))

@@ -106,16 +106,18 @@ def flash_attention(B, S, H, KH, hd, es, causal=True):
     return es * (2 * B * S * H * hd + 2 * B * S * KH * hd), 4 * hd * pairs
 
 
-def mlstm_chunkwise(B, H, S, dh, L):
-    # q, k, v, h (B,H,S,dh), the gates (B,H,S), the state in and out;
-    # per (b, h, chunk) what the function needs: the causal halves of
-    # q k^T and scores v (L^2 dh each; the denominator's in-chunk part is
-    # the score rows' sums), 2 L dh^2 each for q C^T and the C update,
-    # and 2 L dh each for q . n and the n update
-    bytes_ = 4 * (4 * B * H * S * dh + 2 * B * H * S
-                  + 2 * (B * H * dh * dh + B * H * dh + B * H))
-    ops_ = B * H * (S // L) * (2 * L * L * dh + 4 * L * dh * dh
-                               + 4 * L * dh)
+def mlstm_chunkwise(B, H, S, dk, L, dv=None):
+    # q, k (B,H,S,dk), v, h (B,H,S,dv) (dv = dk when None), the gates
+    # (B,H,S), the state in and out; per (b, h, chunk) what the function
+    # needs: the causal halves of q k^T (L^2 dk) and scores v (L^2 dv; the
+    # denominator's in-chunk part is the score rows' sums), 2 L dv dk each
+    # for q C^T and the C update, and 2 L dk each for q . n and the n
+    # update
+    dv = dk if dv is None else dv
+    bytes_ = 4 * (2 * B * H * S * (dk + dv) + 2 * B * H * S
+                  + 2 * (B * H * dv * dk + B * H * dk + B * H))
+    ops_ = B * H * (S // L) * (L * L * (dk + dv) + 4 * L * dv * dk
+                               + 4 * L * dk)
     return bytes_, ops_
 
 

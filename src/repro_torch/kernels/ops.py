@@ -299,10 +299,12 @@ class _MLSTMChunkwise(torch.autograd.Function):
     def forward(ctx, q, k, v, log_i, log_f, C0, n0, m0, chunk):
         from repro_torch.kernels import mlstm_scan
         if _traced(q):
-            B, H, S, dh = q.shape
+            B, H, S, dk = q.shape
+            dv = v.shape[-1]
             L = min(int(chunk), S)
-            _record("mlstm_chunkwise", *cost.mlstm_chunkwise(B, H, S, dh, L))
-            out = mlstm_scan.buffers(B, H, S, dh, L, q.device)[:4]
+            _record("mlstm_chunkwise", *cost.mlstm_chunkwise(B, H, S, dk, L,
+                                                              dv))
+            out = mlstm_scan.buffers(B, H, S, dk, L, q.device, dv)[:4]
         else:
             out = mlstm_scan.launch(q, k, v, log_i, log_f, C0, n0, m0,
                                     chunk=chunk)
@@ -321,10 +323,12 @@ class _MLSTMChunkwise(torch.autograd.Function):
 def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     """Chunkwise mLSTM from the state (C0, n0, m0): log-gated masked linear
     attention inside chunks of ``L = min(chunk, S)`` steps (L must divide
-    S) and the state carried across them.  q/k/v: (B, H, S, dh);
-    log_i/log_f: (B, H, S); C0: (B, H, dh, dh) storing v (x) k; n0:
-    (B, H, dh); m0: (B, H); all f32.  Returns (h (B, H, S, dh), C, n, m).
-    On the card its gradient is the plain version's."""
+    S) and the state carried across them.  q/k: (B, H, S, dk); v: (B, H,
+    S, dv), dv <= dk (a rank's share of the value rows; the scale stays
+    dk^-1/2); log_i/log_f: (B, H, S); C0: (B, H, dv, dk) storing v (x) k;
+    n0: (B, H, dk); m0: (B, H); all f32.  Returns (h (B, H, S, dv), C, n,
+    m).  On the card its gradient is the plain version's; widths the
+    kernel does not take raise (``mlstm_scan.check_widths``)."""
     args = (q, k, v, log_i, log_f, C0, n0, m0)
     if not _traced(q) and _on_cpu(q, "mlstm_chunkwise"):
         return ref.mlstm_chunkwise_ref(*args, chunk)

@@ -260,11 +260,11 @@ def paged_attention_ref(q, k_pages, v_pages, slot_pos, table, positions, *,
 
 def mlstm_chunkwise_ref(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
     """Chunkwise-parallel stabilized mLSTM from a given state, the plain
-    version of the mLSTM kernel.  q/k/v: (B, H, S, dh); log_i/log_f:
-    (B, H, S); C0 (B, H, dh, dh) storing v (x) k, n0 (B, H, dh), m0 (B, H),
-    all f32.  Runs ``models.ssm._mlstm_chunk`` over chunks of
-    ``L = min(chunk, S)`` steps, which must divide S.  Returns
-    (h (B, H, S, dh), C, n, m)."""
+    version of the mLSTM kernel.  q/k: (B, H, S, dk); v: (B, H, S, dv),
+    dv <= dk; log_i/log_f: (B, H, S); C0 (B, H, dv, dk) storing v (x) k,
+    n0 (B, H, dk), m0 (B, H), all f32.  Runs ``models.ssm._mlstm_chunk``
+    over chunks of ``L = min(chunk, S)`` steps, which must divide S.
+    Returns (h (B, H, S, dv), C, n, m)."""
     from repro_torch.models.ssm import _mlstm_chunk
     S = q.shape[2]
     L = min(chunk, S)

@@ -446,6 +446,48 @@ def _freeze_idle(old, new, positions):
         o.copy_(torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o))
 
 
+def _model_split(kind, lp, cfg: ModelConfig, cache, dmesh) -> tuple:
+    """(split, state dims, cuts) of a recurrent block on ``dmesh``: the
+    number of ``model`` ranks its work splits over (1: whole on every
+    rank), for each leaf of its state the dim that split cuts (None for
+    none), and the ``spmd.Cut`` of each weight but ``norm`` (``ssm``'s
+    ``*_cuts``).  With a state, each block runs on the split
+    ``partition.cache_specs`` gives it: Mamba2 on ``h``'s head dim p, the
+    mLSTM on ``C``'s value rows, the sLSTM's recurrence on its heads where
+    the cache splits them (its projections split wherever ``d_model``
+    divides ``model``).  With none, Mamba2 on its heads and the mLSTM on
+    its value rows where they divide ``model``."""
+    from repro_torch.dist import spmd
+    m = spmd.axis_size(dmesh, "model")
+    if m == 1:
+        return 1, None, None
+    mdim = list(dmesh.mesh_dim_names).index("model")
+    di = cfg.d_model * cfg.ssm_expansion
+
+    def cut(t, d):
+        return mdim in spmd.sharded_dims(t, d)
+    if kind == "mamba2":
+        hd = lp["gnorm"]["scale"].shape[0] // lp["A_log"].shape[0]
+        if cache is None and lp["A_log"].shape[0] % m == 0:
+            return m, None, ssm.mamba2_cuts(m, di, cfg.ssm_state_dim, hd,
+                                            False)
+        if cache is not None and cut(cache.h, 2):
+            return m, (2, None), ssm.mamba2_cuts(m, di, cfg.ssm_state_dim,
+                                                 hd, True)
+        return 1, None, None
+    if kind == "mlstm":
+        if (cut(cache.C, 2) if cache is not None
+                else (di // cfg.num_heads) % m == 0):
+            dims = None if cache is None else (2, None, None, None)
+            return m, dims, ssm.mlstm_cuts(m, cfg.num_heads, di)
+        return 1, None, None
+    if cfg.d_model % m:
+        return 1, None, None
+    heads = cut(cache.c, 1) if cache is not None else cfg.num_heads % m == 0
+    return m, (1, 1, 1, 1) if cache is not None and heads else None, \
+        ssm.slstm_cuts(m, cfg.num_heads, cfg.d_model, heads)
+
+
 def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache,
                 region=None):
     """One recurrent block; a given state is updated in place.  A decode
@@ -453,20 +495,18 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache,
     idle rows; everything else takes the chunkwise form, whose mLSTM part
     is one ``ops.mlstm_chunkwise`` call, with the reference's chunk of
     ``min(256, S)``.  On DTensors the block runs on each rank's batch rows
-    with its weights gathered (``spmd.local_region``), the mLSTM kernel
-    on the rank's heads; a Mamba2 block with no state whose heads divide
-    ``model`` runs on the rank's heads throughout
-    (``ssm._mamba2_heads``)."""
+    (``spmd.local_region``) and, where :func:`_model_split` splits it, on
+    the rank's share over ``model`` (``region``), its state cut there in
+    place: Mamba2 on its heads or its head dim, the mLSTM on its value
+    rows, the sLSTM with its projections split."""
     from repro_torch.dist import spmd
     if spmd.is_dist(x):
         dm = x.device_mesh
         bd = spmd.sharded_dims(cache[0], 0) if cache is not None \
             else spmd.batch_dims(dm, x.shape[0])
-        m = spmd.axis_size(dm, "model")
-        heads = kind == "mamba2" and cache is None and m > 1 \
-            and lp["A_log"].shape[0] % m == 0
-        shared = {k: v for k, v in lp.items() if k != "norm"} if heads \
-            else {}
+        split, state_dims, cuts = _model_split(kind, lp, cfg, cache, dm)
+        shared = {k: v for k, v in lp.items() if k != "norm"} \
+            if split > 1 else {}
         own = {k: v for k, v in lp.items() if k not in shared}
         pos_b = positions.ndim == 2
         batched = [x, positions] if pos_b else [x]
@@ -478,27 +518,29 @@ def _apply_kind(kind, lp, x, cfg: ModelConfig, positions, cache,
             else:
                 xl, lpl, pl, spl, st = a
             return _apply_kind(kind, {**lpl, **spl}, xl, cfg, pl, st,
-                               region if kind != "mamba2" or heads
-                               else None)
+                               region if split > 1 else None)
         return spmd.local_region(body, dm, bd, batched, whole, [cache],
-                                 [shared])
+                                 [shared], split, [state_dims], [cuts])
     decode = x.shape[1] == 1 and cache is not None
     if kind == "mlstm" and decode:
         y, st = ssm.mlstm_decode_step(lp, x, cache, num_heads=cfg.num_heads,
-                                      expansion=cfg.ssm_expansion)
+                                      expansion=cfg.ssm_expansion,
+                                      region=region)
     elif kind == "mlstm":
         y, st = ssm.mlstm_apply(lp, x, num_heads=cfg.num_heads, state=cache,
                                 chunk=min(256, x.shape[1]),
                                 expansion=cfg.ssm_expansion, region=region)
     elif kind == "mamba2" and decode:
         y, st = ssm.mamba2_decode_step(lp, x, cache,
-                                       state_dim=cfg.ssm_state_dim)
+                                       state_dim=cfg.ssm_state_dim,
+                                       region=region)
     elif kind == "mamba2":
         y, st = ssm.mamba2_apply(lp, x, state_dim=cfg.ssm_state_dim,
                                  state=cache, chunk=min(256, x.shape[1]),
                                  region=region)
     elif kind == "slstm":
-        y, st = ssm.slstm_apply(lp, x, num_heads=cfg.num_heads, state=cache)
+        y, st = ssm.slstm_apply(lp, x, num_heads=cfg.num_heads, state=cache,
+                                region=region)
     else:
         raise ValueError(kind)
     if decode:

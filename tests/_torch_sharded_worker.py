@@ -39,8 +39,26 @@ def _train(cfg, params, batch, dm, res, tag, **kw):
     _flat(f"{tag}/nu", o2.nu, res)
 
 
+def _placed(caches, specs, dm):
+    """Whether every cache leaf is placed as ``specs`` place it, its local
+    tensor the shard those placements cut, one entry a leaf."""
+    from repro_torch.dist import partition, spmd
+    pls = partition.tree_leaves(partition.to_placements(specs, dm),
+                                is_leaf=lambda t: isinstance(t, tuple) and all(
+                                    not isinstance(e, (str, tuple,
+                                                       type(None)))
+                                    for e in t))
+    out = []
+    for x, pl in zip(partition.tree_leaves(caches), pls):
+        cut = [s.stop - s.start for s in spmd.local_slices(x.shape, pl, dm)]
+        out.append(tuple(x.placements) == tuple(pl)
+                   and list(x.to_local().shape) == cut)
+    return np.asarray(out)
+
+
 def _serve(cfg, params, batch, dm, res):
-    """Prefill then one decode step on the prefilled caches."""
+    """Prefill then one decode step on the prefilled caches: logits, the
+    caches after each, and whether they kept their placements."""
     from repro_torch.configs.base import InputShape
     from repro_torch.dist import partition
     from repro_torch.launch import steps as TS
@@ -52,6 +70,7 @@ def _serve(cfg, params, batch, dm, res):
     res["prefill/logits"] = logits.full_tensor().numpy()
     _flat("prefill/cache", caches, res)
     sfn, _ = TS.make_serve_step(cfg, dm, InputShape("d", S, B, "decode"))
+    res["prefill/placed"] = _placed(caches, sfn.specs["cache"], dm)
     tok = torch.argmax(logits.full_tensor(), -1).to(torch.int32)
     pos = torch.full((B,), S, dtype=torch.int32)
     tp = partition.distribute_tree({"token": tok, "pos": pos},
@@ -59,6 +78,8 @@ def _serve(cfg, params, batch, dm, res):
     lg, caches = sfn(pp, caches, tp["token"], tp["pos"])
     res["serve/logits"] = lg.full_tensor().numpy()
     res["serve/token"] = torch.argmax(lg.full_tensor(), -1).numpy()
+    res["serve/placed"] = _placed(caches, sfn.specs["cache"], dm)
+    _flat("serve/cache", caches, res)
 
 
 def _checkpoint(params, dm, res, path):
@@ -98,7 +119,6 @@ def _clip(params, dm, res):
 
 
 def run(rank, world, port, payload, out_path, ckpt_path):
-    from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import device_mesh, make_mesh
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
@@ -106,7 +126,7 @@ def run(rank, world, port, payload, out_path, ckpt_path):
         dm = device_mesh(make_mesh(*MESH), "cpu")
         res = {}
         for arch, params, batch, cases in payload:
-            cfg = get_reduced(arch)
+            cfg = reduced(arch)
             params = {k: v for k, v in _tensors(params).items()}
             batch = _tensors(batch)
             for case in cases:
@@ -127,6 +147,16 @@ def run(rank, world, port, payload, out_path, ckpt_path):
             np.savez(out_path, **res)
     finally:
         dist.destroy_process_group()
+
+
+def reduced(name):
+    """The reduced config of ``name``: an arch, or ``ARCH/h1`` for that
+    arch with one head (xlstm-1.3b's recurrent heads then divide no
+    ``model`` split, as its 4 heads do not divide 16 at full width)."""
+    from repro_torch.configs import get_reduced
+    arch, _, tag = name.partition("/")
+    cfg = get_reduced(arch)
+    return cfg.replace(num_heads=1, num_kv_heads=1) if tag == "h1" else cfg
 
 
 def _tensors(tree):

@@ -18,7 +18,7 @@ from repro.kernels.env_megakernel import mega_step_ring
 from repro_torch import interop
 from repro_torch.envs import SPECS
 from repro.models import ssm as jssm
-from repro_torch.kernels import (_build, channel_pack, env_megakernel,
+from repro_torch.kernels import (_build, channel_pack, cost, env_megakernel,
                                  flash_attention, fused_policy_mlp, gae_scan,
                                  mlstm_scan, ops, paged_decode, ref)
 from repro_torch.models import ssm as tssm
@@ -447,6 +447,117 @@ def test_mlstm_plain_from_a_state_matches_reference(S, chunk):
     for g, w, atol in zip(got, want, (1e-4, 1e-5, 1e-5, 1e-5)):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=atol)
     assert all(np.isfinite(w).all() for w in want)
+
+
+def _value_rows(args, r, dv):
+    """``_mlstm_args`` with v and C0 cut to value rows ``r dv .. (r + 1)
+    dv``: what a rank of a value split holds."""
+    a = list(args)
+    a[2] = args[2][..., r * dv:(r + 1) * dv].contiguous()
+    a[5] = args[5][:, :, r * dv:(r + 1) * dv].contiguous()
+    return a
+
+
+@pytest.mark.parametrize("shape,chunk,parts", [((1, 2, 128, 16), 64, 4),
+                                               ((2, 2, 128, 64), 32, 2)])
+def test_mlstm_plain_value_rows_match_pallas_kernel(shape, chunk, parts):
+    """The plain version at dv = dk / parts value rows (a sharded step's
+    rank: (2, 2, 128, 64) at dv 32 is reduced xlstm-1.3b's on (2, 2)) from
+    a zero state: its h is exactly those rows of its own h at dv = dk, and
+    within 1e-5 of the largest magnitude of the Pallas kernel's
+    interpret-mode output on the full v, in the same rows (sums in another
+    order); n and m equal the full call's."""
+    args = _mlstm_args(*shape, zero=True)
+    want = np.asarray(jops.mlstm(*[jnp.asarray(a.numpy()) for a in args[:5]],
+                                 chunk=chunk, interpret=True))
+    full = ref.mlstm_chunkwise_ref(*args, chunk)
+    dv = shape[3] // parts
+    for r in range(parts):
+        h, C, n, m = ref.mlstm_chunkwise_ref(*_value_rows(args, r, dv), chunk)
+        rows = slice(r * dv, (r + 1) * dv)
+        assert h.shape == shape[:3] + (dv,)
+        assert C.shape == shape[:2] + (dv, shape[3])
+        np.testing.assert_array_equal(h.numpy(), full[0][..., rows].numpy())
+        np.testing.assert_array_equal(C.numpy(), full[1][:, :, rows].numpy())
+        np.testing.assert_array_equal(n.numpy(), full[2].numpy())
+        np.testing.assert_array_equal(m.numpy(), full[3].numpy())
+        np.testing.assert_allclose(h.numpy(), want[..., rows], rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("S,chunk", [(48, 16), (40, 64)])
+def test_mlstm_plain_value_rows_from_a_state_match_reference(S, chunk):
+    """From a non-zero state, the plain version on half of the value rows
+    (v and C0's rows) against the same rows of the reference's
+    ``_mlstm_chunk`` scan on the full v: h and the final C within 1e-5,
+    n and m the whole head's."""
+    args = _mlstm_args(2, 3, S, 32, zero=False)
+    want = _jax_chunk_scan(args, chunk)
+    for r in range(2):
+        rows = slice(r * 16, (r + 1) * 16)
+        h, C, n, m = ops.mlstm_chunkwise(*_value_rows(args, r, 16),
+                                         chunk=chunk)
+        np.testing.assert_allclose(h.numpy(), want[0][..., rows], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(C.numpy(), want[1][:, :, rows], rtol=0,
+                                   atol=1e-5)
+        for g, w in ((n, want[2]), (m, want[3])):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5)
+
+
+def test_mlstm_plain_value_rows_gradients_are_the_ranks_share():
+    """Autograd of the plain version (the kernel's backward) on each
+    rank's value rows, its loss the rank's rows of h and C (and, on one
+    rank, n and m, which every rank computes whole): the ranks' gradients
+    of q, k, the gates and (n0, m0) sum to the full call's, and those of
+    v and C0 are the full call's rows, each within 1e-5 of the leaf's
+    largest magnitude (the sum's order differs)."""
+    args = _mlstm_args(2, 2, 64, 32, zero=False)
+    gen = torch.Generator().manual_seed(7)
+    outs = ref.mlstm_chunkwise_ref(*args, 16)
+    ws = [torch.randn(o.shape, generator=gen) for o in outs]
+
+    def grads(a, rows, with_nm):
+        xs = [t.clone().requires_grad_() for t in a]
+        h, C, n, m = ref.mlstm_chunkwise_ref(*xs, 16)
+        loss = (h * ws[0][..., rows]).sum() + (C * ws[1][:, :, rows]).sum()
+        if with_nm:
+            loss = loss + (n * ws[2]).sum() + (m * ws[3]).sum()
+        return torch.autograd.grad(loss, xs)
+    full = grads(args, slice(None), True)
+    parts = [grads(_value_rows(args, r, 16), slice(r * 16, (r + 1) * 16),
+                   r == 0) for r in range(2)]
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(
+            1.0, float(want.abs().max())))
+    for i in (0, 1, 3, 4, 6, 7):                 # q, k, gates, n0, m0
+        close(parts[0][i] + parts[1][i], full[i])
+    close(torch.cat([p[2] for p in parts], -1), full[2])
+    close(torch.cat([p[5] for p in parts], 2), full[5])
+
+
+@pytest.mark.parametrize("dk,dv,ok", [(512, 32, True), (64, 32, True),
+                                      (256, 128, True), (64, 64, True),
+                                      (512, 48, False), (64, 128, False),
+                                      (512, 16, False), (544, 32, False)])
+def test_mlstm_kernel_states_its_value_widths(dk, dv, ok):
+    """The kernel takes dk and dv multiples of 32 with 32 <= dv <= dk <=
+    512 and raises for any other width (no plain route runs in its place
+    on the card); the buffers of a call and the fake branch's cost count
+    dv."""
+    if ok:
+        mlstm_scan.check_widths(dk, dv)
+        bufs = mlstm_scan.buffers(2, 3, 16, dk, 8, "meta", dv)
+        assert [tuple(b.shape) for b in bufs[:4]] == [
+            (2, 3, 16, dv), (2, 3, dv, dk), (2, 3, dk), (2, 3)]
+        assert tuple(bufs[5].shape) == (6, dv, dk)
+        nb, no = cost.mlstm_chunkwise(2, 3, 16, dk, 8, dv)
+        assert nb == 4 * (2 * 6 * 16 * (dk + dv) + 2 * 6 * 16
+                          + 2 * (6 * dv * dk + 6 * dk + 6))
+        assert no == 6 * 2 * (64 * (dk + dv) + 32 * dv * dk + 32 * dk)
+    else:
+        with pytest.raises(ValueError):
+            mlstm_scan.check_widths(dk, dv)
 
 
 def test_mlstm_plain_without_the_inter_chunk_term_fails(monkeypatch):

@@ -18,11 +18,16 @@ gathered to full tensors.  The gates:
   cancellation) turns float32 rounding of the gradient, which a sharded
   sum orders differently, into a sizeable share of ``lr``: there the
   params are held within ``lr``, the most one step can move them;
-* prefill logits within 1e-5, the served token identical, in f32;
+* prefill logits within 1e-5, the served token identical, in f32; at
+  the recurrent archs (their blocks on their cache's ``model`` split)
+  every state leaf within 1e-5 after prefill and after a decode step,
+  each cache leaf in its ``cache_specs`` placement throughout, and the
+  prefill logits within 2e-4 of the JAX package's;
 * a checkpoint restored onto placements bit-identical, with them;
 * the global-norm clip: the norm and the clipped update equal the
   unsharded ones.
 """
+import functools
 import multiprocessing
 import os
 import socket
@@ -59,7 +64,9 @@ DENSE_CASES = ["train/har/contract", "train/mrr/contract", "serve", "ckpt",
 OTHER = {"granite-moe-1b-a400m": ["train/har/contract",
                                   "train/har/expert"],
          "xlstm-1.3b": ["train/har/contract", "serve"],
+         "xlstm-1.3b/h1": ["train/har/contract", "serve"],
          "zamba2-7b": ["train/har/contract", "serve"]}
+RECURRENT = ["xlstm-1.3b", "xlstm-1.3b/h1", "zamba2-7b"]
 
 
 def _free_port():
@@ -68,11 +75,19 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _jcfg(name):
+    """The JAX package's reduced config of ``name`` (``ARCH/h1``: with
+    one head, as ``worker.reduced``)."""
+    arch, _, tag = name.partition("/")
+    cfg = jget_reduced(arch)
+    return cfg.replace(num_heads=1, num_kv_heads=1) if tag == "h1" else cfg
+
+
 def _inputs(arch, seed=3):
     """(reference params, port params as numpy, batch) for ``arch``."""
-    jp = JT.init_model(jax.random.key(seed), jget_reduced(arch))
+    jp = JT.init_model(jax.random.key(seed), _jcfg(arch))
     npp = jax.tree.map(np.asarray, jp)
-    batch = make_batch(get_reduced(arch), InputShape("t", S, B, "train"),
+    batch = make_batch(worker.reduced(arch), InputShape("t", S, B, "train"),
                        seed=seed)
     return jp, interop.to_numpy(interop.model_params(npp)), dict(batch)
 
@@ -116,7 +131,8 @@ def other(tmp_path_factory):
 
 
 def _unsharded_step(arch, params, batch):
-    fn, _ = TS.make_train_step(get_reduced(arch), None, None, TrainConfig())
+    fn, _ = TS.make_train_step(worker.reduced(arch), None, None,
+                               TrainConfig())
     return fn(params, adam_init(params), batch)
 
 
@@ -217,8 +233,10 @@ def test_global_norm_clip_equals_unsharded(dense):
 def test_other_steps_match_unsharded(other, arch, case):
     """A reduced MoE stack under ``moe_spec="contract"`` and
     ``"expert"``, and the recurrent stacks (their blocks on each rank's
-    batch rows, xlstm's mLSTM kernel on the rank's heads): loss, params
-    and Adam state against the unsharded step."""
+    batch rows and ``model`` share: zamba2's Mamba2 on its heads, xlstm's
+    mLSTM on its value rows, its sLSTM's projections split, the
+    recurrence on its heads or, with one head, whole): loss, params and
+    Adam state against the unsharded step."""
     inputs, res = other
     params, batch = inputs[arch]
     tag = f"{arch}/{case}"
@@ -227,23 +245,126 @@ def test_other_steps_match_unsharded(other, arch, case):
     _held_step(res, tag, p2, o2)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
-def test_recurrent_serve_matches_unsharded(other, arch):
-    """Prefill logits within 1e-5 and the served token identical, with
-    the recurrent states written back into their placed caches."""
-    inputs, res = other
-    params, batch = inputs[arch]
-    cfg = get_reduced(arch)
+def _unsharded_serve(arch, params, batch):
+    """The port's unsharded prefill (logits, caches) and one decode step
+    on those caches (logits, caches), as the worker runs them."""
+    cfg = worker.reduced(arch)
     fn, _ = TS.make_prefill_step(cfg, None, InputShape("p", S, B,
                                                        "prefill"))
-    logits, caches = fn(params, batch)
+    logits, caches = fn(params, {"tokens": batch["tokens"],
+                                 "labels": batch["labels"]})
+    pre = [(k, v.clone()) for k, v in keystr_leaves(caches)]
+    sfn, _ = TS.make_serve_step(cfg, None, InputShape("d", S, B, "decode"))
+    lg, caches = sfn(params, caches, torch.argmax(logits, -1).to(
+        torch.int32), torch.full((B,), S, dtype=torch.int32))
+    return logits, pre, lg, list(keystr_leaves(caches))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_serve_matches_unsharded(other, arch):
+    """Prefill logits within 1e-5 and the served token identical, with
+    the recurrent blocks on their cache's ``model`` split (Mamba2 on
+    ``h``'s head dim, the mLSTM on ``C``'s value rows, the sLSTM's
+    recurrence on its heads, or whole with one head) and their states
+    written back into their placed caches: every state leaf within 1e-5
+    of the unsharded step's after prefill and after the decode step, the
+    decode logits within 1e-5."""
+    inputs, res = other
+    params, batch = inputs[arch]
+    logits, pre, lg, post = _unsharded_serve(arch, params, batch)
     np.testing.assert_allclose(res[f"{arch}/prefill/logits"],
                                logits.numpy(), rtol=0, atol=1e-5)
-    sfn, _ = TS.make_serve_step(cfg, None, InputShape("d", S, B, "decode"))
-    lg, _ = sfn(params, caches, torch.argmax(logits, -1).to(torch.int32),
-                torch.full((B,), S, dtype=torch.int32))
+    for tag, leaves in (("prefill", pre), ("serve", post)):
+        for k, v in leaves:
+            np.testing.assert_allclose(res[f"{arch}/{tag}/cache{k}"],
+                                       v.numpy(), rtol=0, atol=1e-5,
+                                       err_msg=tag + k)
     np.testing.assert_array_equal(res[f"{arch}/serve/token"],
                                   torch.argmax(lg, -1).numpy())
+    np.testing.assert_allclose(res[f"{arch}/serve/logits"], lg.numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_caches_keep_their_placements(other, arch):
+    """Every cache leaf stays in its ``cache_specs`` placement through the
+    prefill and the decode step, its local tensor the split shard (at
+    (2, 2): Mamba2's ``h`` cut on its head dim, the mLSTM's ``C`` on its
+    value rows, the sLSTM's states on their heads, whole with one head);
+    the states are written in place, never gathered and split again."""
+    _, res = other
+    for tag in ("prefill", "serve"):
+        placed = res[f"{arch}/{tag}/placed"]
+        assert placed.size > 0 and bool(placed.all()), (tag, placed)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_matches_jax(other, arch):
+    """The (data 2, model 2) prefill's logits within 2e-4 of the JAX
+    package's reduced prefill (``repro.launch.steps.make_prefill_step``
+    on one device) from the same numpy weights."""
+    from repro.launch import steps as JS
+    from repro.configs.base import InputShape as JShape
+    from repro.models.moe import set_moe_sharding
+    _, res = other
+    jp, _, batch = _inputs(arch)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    try:
+        with mesh:
+            fn, _ = JS.make_prefill_step(_jcfg(arch), mesh,
+                                         JShape("p", S, B, "prefill"))
+            want, _ = fn(jp, {k: jnp.asarray(batch[k])
+                              for k in ("tokens", "labels")})
+    finally:
+        # the reference's step factories set module-level sharding hooks
+        JT.set_activation_sharding(None)
+        set_moe_sharding(None)
+    np.testing.assert_allclose(res[f"{arch}/prefill/logits"],
+                               np.asarray(want), rtol=0, atol=2e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_cell(arch):
+    """The dry run's decode_32k record of ``arch`` at full width on the
+    (16, 16) mesh, traced once for the tests that read it."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_one(arch, "decode_32k", False)
+    assert rec["status"] == "ok"
+    return rec
+
+
+@pytest.mark.parametrize("arch,bound", [("zamba2-7b", 1.2),
+                                        ("xlstm-1.3b", 1.5)])
+def test_recurrent_decode_rank_repeats_little(arch, bound):
+    """The dry run's decode_32k cell at full width on the (16, 16) mesh:
+    rank 0's program (traced under the ``fake`` group) computes at most
+    ``bound`` times its 1/256 share of the whole step's products, its
+    recurrent blocks on their cache's ``model`` split (before the split:
+    x9.708 at zamba2-7b, x14.901 at xlstm-1.3b)."""
+    assert 1.0 <= _decode_cell(arch)["dot_redundancy"] <= bound
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_recurrent_decode_rank_receives_its_weight_share(arch):
+    """In the same cell each recurrent block's weights reach rank 0 cut to
+    the entries it computes with, by one all-to-all over ``model`` a
+    weight: the all-to-alls carry at most 1.2 x the rank's 1/16 of the
+    recurrent blocks' bf16 weights (Mamba2's B, C and dt columns are whole
+    on every rank), and all the rank's collectives move under a quarter
+    of those weights (gathered whole, they moved more than all of them:
+    13,460,358,400 B at zamba2-7b and 3,955,994,624 B at xlstm-1.3b)."""
+    from repro_torch.models import transformer as T
+    kinds = ("mamba2_", "mlstm_", "slstm_")
+    params = T.init_abstract(get_config(arch))["super"]
+    rec_bytes = 2 * sum(v.numel() for k, sub in params.items()
+                        if k.startswith(kinds)
+                        for _, v in keystr_leaves(sub))
+    rec = _decode_cell(arch)
+    a2a = rec["per_device_coll_by_op"]["all-to-all"]
+    assert 0 < a2a <= 1.2 * rec_bytes / 16, (a2a, rec_bytes)
+    assert rec["per_device_collective_bytes"] < rec_bytes / 4, \
+        (rec["per_device_collective_bytes"], rec_bytes)
 
 
 # ----------------------------------------------------- one fake rank ------
