@@ -77,7 +77,8 @@ each asserting, in order:
    final state);
 3. check one small fused PPO iteration on the card against the plain
    PyTorch path on the CPU from the same params, state, noise and
-   permutations;
+   permutations: every Adam update's gradients within 1e-4 of each
+   leaf's largest, the params within 1e-5 plus Adam's slack;
 4. check two small A3C rounds on the card against the CPU path, on both
    branches of ``AsyncRunner.round`` (direct produce into the ring, and
    collect + ring pack), from the same params, state and noise;
@@ -778,25 +779,78 @@ def check_pack(T, n, spec, gen, dev, version) -> float:
     return max(max_err(bk[c], br[c]) for c in bk)
 
 
+def recording_adam(update, rec):
+    """``update`` (an ``adam_update``) that also appends to ``rec``, each
+    call, its gradient leaves, the moments ``mu`` and ``nu`` it leaves (as
+    numpy on the host) and its step: one record of :func:`adam_slack`."""
+    from repro_torch.utils import tree_leaves
+
+    def wrap(grads, state, params, **kw):
+        p2, s2 = update(grads, state, params, **kw)
+        rec.append(tuple([x.detach().cpu().numpy().copy()
+                          for x in tree_leaves(t)]
+                         for t in (grads, s2.mu, s2.nu)) + (int(s2.step),))
+        return p2, s2
+    return wrap
+
+
+def adam_slack(a, b, n=1, lr=3e-4, b1=0.9, b2=0.999, eps=1e-8):
+    """Per params leaf, how far Adam can carry two runs' params apart given
+    the gradients each was fed: ``a`` and ``b`` hold one record an update
+    (:func:`recording_adam`), in the same order.  Each update moves the
+    params by ``lr * mhat / (sqrt(vhat) + eps)``, whose derivative in the
+    gradient is at most ``(1 + |mhat| / den) / den`` (den = sqrt(vhat) +
+    eps); where ``n`` runs' params are averaged after each iteration, 1/n
+    of it.  Where |g| is a few eps (den ~ 1e-8) this is ~1e4 times the
+    gradient's float noise (ROADMAP C10, C2)."""
+    import numpy as np
+    slack = None
+    for (ga, ma, va, step), (gb, mb, vb, _) in zip(a, b):
+        b1c, b2c = 1 - b1 ** step, 1 - b2 ** step
+        out = []
+        for x, y, m1, m2, v1, v2 in zip(ga, gb, ma, mb, va, vb):
+            den = np.minimum(np.sqrt(v1 / b2c), np.sqrt(v2 / b2c)) + eps
+            mhat = np.maximum(np.abs(m1), np.abs(m2)) / b1c
+            out.append(lr / n * (1 + mhat / den) / den
+                       * np.abs(y.astype(np.float64) - x))
+        slack = out if slack is None else [s + o for s, o in zip(slack, out)]
+    return slack
+
+
+def grad_share(a, b) -> float:
+    """The largest gradient difference of two runs' Adam records
+    (:func:`recording_adam`) as a share of its leaf's largest gradient."""
+    import numpy as np
+    return max(float(np.abs(y - x).max() / max(np.abs(x).max(), 1e-30))
+               for (ga, *_), (gb, *_) in zip(a, b)
+               for x, y in zip(ga, gb))
+
+
 def check_small_iteration(dev):
     """One fused PPO iteration on the card (kernels) against the plain
     PyTorch path on the CPU, from the same params, env state, noise and
-    permutations.  Losses and rewards agree to 1e-4.  The iteration's 4
-    Adam steps at lr = 3e-4 move a param by at most about 1.2e-3, so the
-    check first asserts that the CPU run moved some param by more than
-    1e-4 (an update really happened), then holds the card's params to the
-    CPU's within 1e-5, a few percent of one step."""
+    permutations, every Adam update's inputs recorded on both.  Losses and
+    rewards agree to 1e-4.  The iteration's 4 Adam steps at lr = 3e-4
+    move a param by at most about 1.2e-3, so the check first asserts that
+    the CPU run moved some param by more than 1e-4 (an update really
+    happened).  Each gradient Adam is fed on the card is within 1e-4 of
+    its leaf's largest on the CPU, and the card's params within 1e-5 of
+    the CPU's plus what Adam makes of those gradient differences
+    (:func:`adam_slack`: where a gradient is a few eps, Adam turns its
+    float noise into a share of a step, ROADMAP C2)."""
     from repro_torch.envs import make_env
-    from repro_torch.rl.ppo import PPOConfig, init_train, train_iteration
+    from repro_torch.rl import ppo
     from repro_torch.utils import tree_leaves, tree_map
-    cfg = PPOConfig(num_steps=8, num_epochs=2, num_minibatches=2,
-                    use_fused_kernels=True)
+    cfg = ppo.PPOConfig(num_steps=8, num_epochs=2, num_minibatches=2,
+                        use_fused_kernels=True)
     n = 64
-    out = {}
+    out, rec = {}, {}
+    update = ppo.adam_update
     for d in ("cpu", dev):
         env = make_env("Ant", megakernel=True, device=d)
-        p, o, es, ob, _ = init_train(0, make_env("Ant", device="cpu"),
-                                     env.spec.policy_dims, n, device="cpu")
+        p, o, es, ob, _ = ppo.init_train(0, make_env("Ant", device="cpu"),
+                                         env.spec.policy_dims, n,
+                                         device="cpu")
         g = torch.Generator("cpu").manual_seed(1)
         noise = torch.randn((cfg.num_steps, n, env.spec.act_dim),
                             generator=g)
@@ -804,29 +858,44 @@ def check_small_iteration(dev):
                              for _ in range(cfg.num_epochs)])
         p0 = [t.clone() for t in tree_leaves(p)]
         mv = lambda x: tree_map(lambda t: t.to(d), x)
-        res = train_iteration(mv(p), mv(o), env, mv(es), ob.to(d), None,
-                              cfg, noise=noise.to(d), perms=perms.to(d))
+        rec[str(d)] = []
+        ppo.adam_update = recording_adam(update, rec[str(d)])
+        try:
+            res = ppo.train_iteration(mv(p), mv(o), env, mv(es), ob.to(d),
+                                      None, cfg, noise=noise.to(d),
+                                      perms=perms.to(d))
+        finally:
+            ppo.adam_update = update
         out[str(d)] = tree_map(lambda t: t.cpu(), (res[0], res[5], res[1]))
     (pc, mc, oc), (pg, mg, og) = out["cpu"], out[str(dev)]
     for k in ("loss", "reward_mean", "reward_sum", "episode_done_frac"):
         assert abs(float(mc[k]) - float(mg[k])) <= 1e-4, (k, mc[k], mg[k])
     moved = max(max_err(a, b) for a, b in zip(tree_leaves(pc), p0))
     assert moved > 1e-4, ("no update on the CPU", moved)
-    errs = [max_err(a, b) for a, b in zip(tree_leaves(pc), tree_leaves(pg))]
-    perr = max(errs)
-    if perr > 1e-5:
+    rc, rg = rec["cpu"], rec[str(dev)]
+    assert len(rc) == len(rg) == cfg.num_epochs * cfg.num_minibatches
+    grad = grad_share(rc, rg)
+    assert grad <= 1e-4, ("gradients card vs CPU", grad)
+    slack = adam_slack(rc, rg, lr=cfg.lr)
+    over = [(a - b).abs().numpy() - (1e-5 + s)
+            for a, b, s in zip(tree_leaves(pc), tree_leaves(pg), slack)]
+    worst = max(range(len(over)), key=lambda i: over[i].max())
+    perr = max(max_err(a, b) for a, b in zip(tree_leaves(pc),
+                                              tree_leaves(pg)))
+    if over[worst].max() > 0:
         # name the worst element and its Adam moments on both sides, so a
         # failure shows whether a near-zero second moment amplified it
-        i = errs.index(perr)
-        j = int((tree_leaves(pc)[i] - tree_leaves(pg)[i]).abs().argmax())
+        j = int(over[worst].argmax())
         at = lambda t: float(t.reshape(-1)[j])
-        worst = {"leaf": i, "element": j, "start": at(p0[i]),
-                 "cpu": at(tree_leaves(pc)[i]), "card": at(tree_leaves(pg)[i])}
+        bad = {"leaf": worst, "element": j, "start": at(p0[worst]),
+               "cpu": at(tree_leaves(pc)[worst]),
+               "card": at(tree_leaves(pg)[worst]),
+               "slack": float(slack[worst].reshape(-1)[j])}
         for side, o in (("cpu", oc), ("card", og)):
-            worst[f"{side}_mu"] = at(tree_leaves(o.mu)[i])
-            worst[f"{side}_nu"] = at(tree_leaves(o.nu)[i])
-        raise AssertionError(("params card vs CPU", perr, worst))
-    return perr, moved
+            bad[f"{side}_mu"] = at(tree_leaves(o.mu)[worst])
+            bad[f"{side}_nu"] = at(tree_leaves(o.nu)[worst])
+        raise AssertionError(("params card vs CPU", perr, bad))
+    return perr, moved, grad, max(float(s.max()) for s in slack)
 
 
 def check_small_a3c(dev):
@@ -3180,21 +3249,66 @@ def serve_args(fn, sds, cfg, dm, dev, shape, seed=0):
     return params, cache, tok, pos
 
 
+def dtensor_alltoalls(trace) -> tuple:
+    """(calls, result bytes, allocated bytes) of DTensor's all-to-all
+    (``_dtensor.shard_dim_alltoall``) in an op counter's trace."""
+    from repro_torch.launch import hlo_analysis
+    evs = [ev for ev in trace["events"]
+           if ev[0] == "op" and ev[1] == "_dtensor.shard_dim_alltoall"]
+    return (len(evs), sum(hlo_analysis._nbytes(s) for ev in evs
+                          for s in ev[3]),
+            sum(b for ev in evs for _, b in ev[4]))
+
+
+def rank0_by_device(arch) -> tuple:
+    """``arch``'s decode_32k dry-run cell traced for the card (fake CUDA
+    tensors) and for the CPU (fake CPU tensors on a CPU mesh, where
+    DTensor runs its all-to-all as an all-gather, a chunk and a copy):
+    rank 0's collectives by kind are the same (ROADMAP C18), and so are
+    DTensor's all-to-alls in its traces (:func:`dtensor_alltoalls`),
+    each counted at its result's bytes; at zamba2-7b there are some (its
+    shared attention block's weights change split), and the card counts
+    them as all-to-alls.  Returns (the card's record, the CPU's, the
+    all-to-alls)."""
+    import tempfile
+    from repro_torch.launch import dryrun, hlo_analysis
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{arch}_{d}.hlo.gz")
+            rec = dryrun.run_one(arch, "decode_32k", False, save_hlo=path,
+                                 device=d)
+            assert rec["status"] == "ok", rec
+            out[d] = (rec, dtensor_alltoalls(hlo_analysis.load_trace(
+                path.replace(".hlo.gz", "_rank0.hlo.gz"))))
+    (rec, a2a), (crec, ca2a) = out["cuda"], out["cpu"]
+    for k in ("per_device_coll_by_op", "per_device_coll_counts",
+              "per_device_collective_bytes"):
+        assert rec[k] == crec[k], (arch, k, rec[k], crec[k])
+    assert a2a == ca2a and a2a[1] == a2a[2], (arch, a2a, ca2a)
+    if arch == ZARCH:
+        assert a2a[0] > 0 and \
+            rec["per_device_coll_by_op"]["all-to-all"] >= a2a[1], (arch, a2a)
+    return rec, crec, a2a
+
+
 def run_rank0_decode(dev, arch, bound):
     """Phase 21 (b): ``arch``'s decode_32k as rank 0 of (16, 16) at full
     width and depth, its recurrent blocks on their cache's ``model``
     split.  The dry run's cell (``dryrun.run_one``: the whole step and
     rank 0's program traced on fake tensors) gives ``dot_redundancy``,
-    asserted at most ``bound``; then one real decode step of rank 0 on
-    the card under the ``fake`` group, under the op counter: its dot
-    FLOPs equal the trace's, and its peak bytes (from a reset, a second
-    step) within MEM_TOL of the trace's arguments + temporaries."""
+    asserted at most ``bound``; traced for the card and for the CPU,
+    rank 0's collectives are the same (:func:`rank0_by_device`); then
+    one real decode step of
+    rank 0 on the card under the ``fake`` group, under the op counter:
+    its dot FLOPs equal the trace's, and its peak bytes (from a reset, a
+    second step) within MEM_TOL of the trace's arguments +
+    temporaries."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch import dryrun, hlo_analysis
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import make_serve_step
-    rec = dryrun.run_one(arch, "decode_32k", False)
-    assert rec["status"] == "ok", rec
+    rec, crec, a2a = rank0_by_device(arch)
     assert rec["dot_redundancy"] <= bound, (arch, rec["dot_redundancy"])
     cfg, shape = get_config(arch), INPUT_SHAPES["decode_32k"]
     mesh = mesh_lib.make_production_mesh()
@@ -3216,7 +3330,9 @@ def run_rank0_decode(dev, arch, bound):
         del args
     predicted = rec["per_device_mem_bytes"]
     measured = peak - (base - args_b)
-    st = {"rec": rec, "real_dot_flops": real["dot_flops"],
+    st = {"rec": rec, "cpu_rec": crec, "dtensor_a2a": a2a,
+          "real_dot_flops": real["dot_flops"],
+          "real_coll_by_op": real["coll_by_op"],
           "real_temp_bytes": real["mem_temp_bytes"], "step_ms": ms,
           "predicted_bytes": predicted, "measured_bytes": measured,
           "argument_bytes": args_b,
@@ -3723,10 +3839,12 @@ def main() -> int:
           ", rings bit-exact, sentinel kept")
 
     # 3. small iteration against the CPU path -----------------------------
-    perr, moved = check_small_iteration(dev)
+    perr, moved, grad, slack = check_small_iteration(dev)
     print(f"[parity] fused PPO iteration card vs CPU: params max_abs_err="
-          f"{perr:.3g} (tol 1e-5; largest update {moved:.3g}), metrics "
-          "within 1e-4")
+          f"{perr:.3g} (tol 1e-5 + Adam's slack, largest {slack:.3g}; "
+          f"largest update {moved:.3g}), Adam's gradients within "
+          f"{grad:.3g} of each leaf's largest (tol 1e-4), metrics within "
+          "1e-4")
 
     # 4. small A3C rounds against the CPU path ----------------------------
     for branch, (perr, moved) in check_small_a3c(dev).items():
@@ -4178,6 +4296,18 @@ def main() -> int:
               f"{rec['per_device_mem_bytes'] / 2**30:.2f}; traces "
               f"{rec['lower_s']} + {rec['per_device_trace_s']} s; step "
               f"{st['step_ms']:.3f} ms, compute only | {card_line()}")
+        crec = st["cpu_rec"]
+        n, nb, _ = st["dtensor_a2a"]
+        print(f"[sharded] (b) {arch} decode_32k rank 0 traced for the card "
+              f"and for the CPU: collectives by kind "
+              f"{json.dumps(rec['per_device_coll_by_op'])} and "
+              f"{json.dumps(crec['per_device_coll_by_op'])} (equal), calls "
+              f"{json.dumps(rec['per_device_coll_counts'])}; DTensor's "
+              f"all-to-all {n} calls, {nb:,} B at their results' bytes; "
+              f"dot_redundancy x{rec['dot_redundancy']:.4f} and "
+              f"x{crec['dot_redundancy']:.4f}; the real step's counter: "
+              f"{json.dumps(st['real_coll_by_op'])}; CPU traces "
+              f"{crec['lower_s']} + {crec['per_device_trace_s']} s")
     rec = sh["nccl"]
     print(f"[sharded] (b) NCCL world of {torch.cuda.device_count()} "
           f"rank(s), mesh {tuple(rec['mesh'])}, reduced {ARCH} HAR step: "

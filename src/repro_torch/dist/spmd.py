@@ -364,16 +364,35 @@ def col(x, params):
     return y
 
 
+class _GradLayout(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to ``pl`` on its way
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return layout(g, ctx.pl), None
+
+
 def row(h, params):
     """``h @ w`` for ``h`` whose features (last dim) may be split over
     ``model`` (row-parallel): ``w`` (cast to ``h``'s type) is laid out
     with its rows split the same way, and the output is a partial sum
-    over those mesh dims, for the caller's constraint to reduce."""
+    over those mesh dims, for the caller's constraint to reduce.  The
+    output's gradient is summed (made whole over those dims) before the
+    product's backward: left a partial sum, DTensor may gather ``h`` and
+    ``w`` whole and compute both gradients in full on every rank, as
+    PyTorch 2.13's sharding propagation does (ROADMAP C18)."""
     w = params["w"].to(h.dtype)
     md = sharded_dims(h, h.ndim - 1)
     h = layout(h, placements(h.device_mesh, {
         0: list(sharded_dims(h, 0)), h.ndim - 1: list(md)}))
-    return h @ layout(w, placements(w.device_mesh, {0: list(md)}))
+    y = h @ layout(w, placements(w.device_mesh, {0: list(md)}))
+    return _GradLayout.apply(y, reduced(y.placements))
 
 
 # ----------------------------------------------------- stacked layers -----

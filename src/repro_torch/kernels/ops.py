@@ -31,6 +31,7 @@ input requires grad, ``apply`` builds no graph and only the kernel runs.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -61,6 +62,22 @@ def _traced(x) -> bool:
 def _record(name: str, nbytes, nops):
     for t in TRACERS:
         t.record_kernel(name, cost.op_count(nops), nbytes)
+
+
+@contextlib.contextmanager
+def _plain_forward():
+    """Marks for the op counters tracing a step the ops of a kernel's
+    forward run as its plain version: on the CPU in the kernel's place,
+    on the card as the recompute of the kernel's backward.  Products
+    outside them are the same on both devices (``launch/hlo_analysis.py``,
+    ``plain_fwd_dot_flops``)."""
+    for t in TRACERS:
+        t.plain_depth += 1
+    try:
+        yield
+    finally:
+        for t in TRACERS:
+            t.plain_depth -= 1
 
 
 def _on_cpu(x, op: str) -> bool:
@@ -194,9 +211,10 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions, *,
         # out: the split count needs the card's SM count
         return torch.empty_like(q)
     if _on_cpu(q, "paged_attention"):
-        return ref.paged_attention_ref(q, k_pages, v_pages, slot_pos, table,
-                                       positions, window=window,
-                                       softcap=softcap, scale=scale)
+        with _plain_forward():
+            return ref.paged_attention_ref(q, k_pages, v_pages, slot_pos,
+                                           table, positions, window=window,
+                                           softcap=softcap, scale=scale)
     from repro_torch.kernels import paged_decode
     out = paged_decode.launch(q, k_pages, v_pages, slot_pos, table,
                               positions, window=window, softcap=softcap,
@@ -212,7 +230,8 @@ def _grads(ctx, fn, inputs, outs_grads):
     need = ctx.needs_input_grad[:len(inputs)]
     with torch.enable_grad():
         xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
-        outs = fn(*xs)
+        with _plain_forward():
+            outs = fn(*xs)
         if isinstance(outs, torch.Tensor):
             outs = (outs,)
         pairs = [(o, g) for o, g in zip(outs, outs_grads) if g is not None]
@@ -285,8 +304,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     On the card its gradient is autograd of ``plain(q, k, v)``, the plain
     route the caller attends by (``ref.attention_ref`` when None)."""
     if not _traced(q) and _on_cpu(q, "flash_attention"):
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale)
+        with _plain_forward():
+            return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                  plain)
 
@@ -331,5 +351,6 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, C0, n0, m0, *, chunk: int):
     kernel does not take raise (``mlstm_scan.check_widths``)."""
     args = (q, k, v, log_i, log_f, C0, n0, m0)
     if not _traced(q) and _on_cpu(q, "mlstm_chunkwise"):
-        return ref.mlstm_chunkwise_ref(*args, chunk)
+        with _plain_forward():
+            return ref.mlstm_chunkwise_ref(*args, chunk)
     return _MLSTMChunkwise.apply(*args, chunk)

@@ -170,6 +170,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
     hl = res["counts"]
     if save_hlo:
         hlo_analysis.save_trace(res["trace"], save_hlo)
+    del res["trace"]      # counted: not held through the rank's trace
     rec.update({
         "status": "ok",
         "lower_s": round(res["seconds"], 1),
@@ -178,6 +179,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
         "scope": "whole step on one card",
         "hlo_flops_costan": float(res["flop_counter"]),
         "hlo_dot_flops": hl["dot_flops"],
+        "hlo_plain_fwd_dot_flops": hl["plain_fwd_dot_flops"],
         "hlo_traffic_bytes": hl["traffic_bytes"],
         "collective_bytes": hl["collective_bytes"],
         "cross_pod_bytes": hl["cross_pod_bytes"],
@@ -205,6 +207,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
         "per_device_scope": "rank 0 of the mesh",
         "per_device_trace_s": round(rk["seconds"], 1),
         "per_device_dot_flops": pd["dot_flops"],
+        "per_device_plain_fwd_dot_flops": pd["plain_fwd_dot_flops"],
         "per_device_collective_bytes": pd["collective_bytes"],
         "per_device_temp_bytes": pd["mem_temp_bytes"],
         "per_device_argument_bytes": pd["mem_argument_bytes"],
@@ -214,12 +217,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, lgr: str = "har",
         "per_device_kernel_flops": pd["kernel_flops"],
         "cross_pod_bytes": pd["cross_pod_bytes"],
     })
-    # rank 0's live bytes, and how many times over the mesh computes the
-    # whole step's products (1.0: no product is computed twice)
     rec["per_device_mem_bytes"] = (pd["mem_argument_bytes"]
                                    + pd["mem_temp_bytes"])
-    rec["dot_redundancy"] = (pd["dot_flops"] * mesh.size / hl["dot_flops"]
-                             if hl["dot_flops"] else None)
+    rec["dot_redundancy"] = hlo_analysis.dot_redundancy(hl, pd, mesh.size)
     return rec
 
 

@@ -22,6 +22,11 @@ computes every count from the trace alone, so a saved trace
 * ``cross_pod_bytes``  — those of them whose process group spans the
                          ``pod`` mesh axis (the reference's
                          ``crosses_pod``)
+* ``plain_fwd_dot_flops`` — the part of ``dot_flops`` that a kernel's
+                         plain forward computes: in the kernel's place on
+                         the CPU, or as its backward's recompute on the card
+                         (``kernels/ops.py::_plain_forward``); the rest is
+                         the same program on both devices
 * ``kernel_flops`` / ``kernel_bytes`` — by kernel name, each hand-written
                          kernel call's operations and bytes
                          (``kernels/cost.py``): the aten counts do not see
@@ -45,9 +50,15 @@ those wrappers return a result under a storage object of its own, where
 a real wait returns its argument: the counter counts such a result as
 its argument's storage, freed with the last of the two (counted apart,
 a gathered buffer was counted twice, for as long as the trace held
-either).  DTensor's all-to-all (``_dtensor.shard_dim_alltoall``) returns
-on fake tensors a view into the concatenation of every rank's input;
-its result is counted at its own bytes, as the card allocates it.  Under the ``fake``
+either).  DTensor's all-to-all (``_dtensor.shard_dim_alltoall``, a split
+moved from one dim to another) is a collective, counted at its result's
+bytes as ``all_to_all_single`` is; some PyTorch versions' fake kernel
+returns a view into the concatenation of every rank's input, and the
+result is counted at its own bytes, as the card allocates it.  On a CPU
+mesh DTensor runs that all-to-all as an all-gather of every rank's input,
+the rank's chunk of it and a copy; the counter records those ops as the
+card's one all-to-all, each buffer they make counted as its result, so a
+rank's trace is the card's program whichever device traces it.  Under the ``fake``
 process group (one process standing for one rank of a large mesh) the
 collectives move nothing, so such a trace measures the rank's compute,
 memory and the bytes it would move, not the time its communication takes.
@@ -115,10 +126,12 @@ _COLLECTIVES = {
     "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
-    "alltoall_base_": "all-to-all", "broadcast": "broadcast",
-    "broadcast_": "broadcast",
+    "alltoall_base_": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
 }
-_COLL_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+_COLL_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d",
+                    "_dtensor")
+_ALLTOALL = "_dtensor.shard_dim_alltoall"
 # ops whose result is their argument's data under a storage object of its
 # own on fake tensors (a real wait returns its argument): one allocation
 _ALIAS_OPS = {"_c10d_functional.wait_tensor",
@@ -126,7 +139,10 @@ _ALIAS_OPS = {"_c10d_functional.wait_tensor",
 # ops whose fake result is a view into a buffer the group's size times
 # larger (a concatenation of every rank's input), where the card's result
 # is a buffer of its own: counted at the result's bytes
-_RESULT_SIZED_OPS = {"_dtensor.shard_dim_alltoall"}
+_RESULT_SIZED_OPS = {_ALLTOALL}
+# an op event's optional eighth field: flags of what the op is
+_POD = 1          # a collective whose group spans the pod axis
+_PLAIN_FWD = 2    # inside a kernel's plain forward
 
 
 def _shapes(text: str):
@@ -147,10 +163,11 @@ def _nbytes(text: str) -> int:
     return total
 
 
-def spec(t: torch.Tensor) -> str:
-    """A tensor's dtype and shape as the reference's HLO writes them."""
+def spec(t: torch.Tensor, shape=None) -> str:
+    """A tensor's dtype and shape (or ``shape``) as the reference's HLO
+    writes them."""
     return f"{_TORCH_DTYPES.get(t.dtype, 'opaque')}[" \
-        f"{','.join(str(d) for d in t.shape)}]"
+        f"{','.join(str(d) for d in (t.shape if shape is None else shape))}]"
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -160,16 +177,23 @@ def _tensors(tree) -> List[torch.Tensor]:
             for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
-def _in_propagation() -> bool:
-    """True while DTensor's sharding propagator runs an op on fake global
-    tensors of its own to learn an output's shape: not the rank's
-    program."""
-    f = sys._getframe(2)
+def _dtensor_caller() -> tuple:
+    """What DTensor is doing where the op being dispatched comes from:
+    ``(True, None)`` while its sharding propagator runs the op on fake
+    global tensors of its own to learn an output's shape (not the rank's
+    program); ``(False, frame)`` inside its all-to-all
+    (``_collective_utils.shard_dim_alltoall``, that function's frame);
+    else ``(False, None)``."""
+    f, a2a = sys._getframe(2), None
     while f is not None:
-        if f.f_code.co_filename.endswith("_sharding_prop.py"):
-            return True
+        code = f.f_code
+        if code.co_filename.endswith("_sharding_prop.py"):
+            return True, None
+        if a2a is None and code.co_name == "shard_dim_alltoall" and \
+                code.co_filename.endswith("_collective_utils.py"):
+            a2a = f
         f = f.f_back
-    return False
+    return False, a2a
 
 
 def _group_name(args) -> str:
@@ -208,6 +232,12 @@ class OpCounter(TorchDispatchMode):
         self._freed: List[int] = []
         self._next = 0
         self._arg_ids: Dict[int, list] = {}
+        self._a2a = None    # trace id of the CPU all-to-all's result
+        # > 0 inside a kernel's plain forward (``ops._plain_forward``)
+        self.plain_depth = 0
+        # one string object a (dtype, shape): a long trace holds millions
+        # of specs of a few shapes
+        self._specs: Dict[tuple, str] = {}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -269,6 +299,13 @@ class OpCounter(TorchDispatchMode):
     def record_kernel(self, name: str, flops, nbytes) -> None:
         self.events.append(["kernel", name, int(flops), int(nbytes)])
 
+    def _spec(self, t, shape=None) -> str:
+        key = (t.dtype, tuple(t.shape if shape is None else shape))
+        out = self._specs.get(key)
+        if out is None:
+            out = self._specs[key] = spec(t, shape)
+        return out
+
     def _foreign(self, tensors) -> bool:
         from torch._subclasses.fake_tensor import FakeTensor
         return any(isinstance(t, FakeTensor) and t.fake_mode is not
@@ -286,17 +323,16 @@ class OpCounter(TorchDispatchMode):
             return out
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
-        if self._foreign(ins) or self._foreign(outs) or (
-                self.sharded and _in_propagation()) or (
+        prop, a2a = _dtensor_caller() if self.sharded else (False, None)
+        if self._foreign(ins) or self._foreign(outs) or prop or (
                 (ins or outs) and all(t.is_meta for t in ins + outs)):
             return out
-        in_keys = {id(t.untyped_storage()) for t in ins}
-        for key in in_keys:
-            arg = self._arg_ids.get(self._ids.get(key))
-            if arg is not None:
-                arg[2] = 1
-        frees, self._freed = self._freed, []
         name = str(func.overloadpacket)
+        if a2a is not None and name != _ALLTOALL:
+            self._alltoall_fallback(name, a2a, args, ins, outs)
+            return out
+        in_keys = self._read(ins)
+        frees, self._freed = self._freed, []
         src = self._ids.get(id(ins[0].untyped_storage())) \
             if name in _ALIAS_OPS and ins else None
         allocs = []
@@ -313,13 +349,57 @@ class OpCounter(TorchDispatchMode):
             if new:
                 allocs.append([tid, self._sizes[tid]])
         view = bool(getattr(func, "is_view", False))
-        ev = ["op", name, [spec(t) for t in ins], [spec(t) for t in outs],
-              allocs, frees, int(view)]
-        if func.namespace in _COLL_NAMESPACES and \
-                _group_name(args) in self.pod_groups:
-            ev.append(1)                  # spans the pod axis
+        ev = ["op", name, [self._spec(t) for t in ins],
+              [self._spec(t) for t in outs], allocs, frees, int(view)]
+        flags = (_POD if func.namespace in _COLL_NAMESPACES and
+                 _group_name(args) in self.pod_groups else 0) | (
+                     _PLAIN_FWD if self.plain_depth else 0)
+        if flags:
+            ev.append(flags)
         self.events.append(ev)
         return out
+
+    def _read(self, ins) -> set:
+        """The storages of an op's arguments; a step argument among them
+        is one (see :func:`analyze`)."""
+        in_keys = {id(t.untyped_storage()) for t in ins}
+        for key in in_keys:
+            arg = self._arg_ids.get(self._ids.get(key))
+            if arg is not None:
+                arg[2] = 1
+        return in_keys
+
+    def _alltoall_fallback(self, name, frame, args, ins, outs) -> None:
+        """An op of DTensor's all-to-all on a CPU mesh, which gathers
+        every rank's input, takes the rank's chunk of it and copies that
+        (``frame``: the all-to-all's).  The all-gather is recorded as the
+        card's ``_dtensor.shard_dim_alltoall`` of the same input, its
+        result the rank's chunk, counted at the chunk's bytes; every
+        buffer the later ops make is counted as that result (the card
+        holds one buffer there)."""
+        if name != "_c10d_functional.all_gather_into_tensor":
+            for t in outs:
+                st = t.untyped_storage()
+                if id(st) not in self._ids:
+                    self._follow(st, self._a2a)
+            return
+        self._read(ins)
+        frees, self._freed = self._freed, []
+        x = ins[0]
+        shape = list(x.shape)
+        n = outs[0].shape[0] // shape[0]
+        loc = frame.f_locals
+        shape[loc["gather_dim"]] *= n
+        shape[loc["shard_dim"]] //= n
+        nbytes = x.element_size()
+        for d in shape:
+            nbytes *= d
+        self._a2a, _ = self._track(outs[0].untyped_storage(), nbytes)
+        ev = ["op", _ALLTOALL, [self._spec(x)], [self._spec(x, shape)],
+              [[self._a2a, nbytes]], frees, 0]
+        if _group_name(args) in self.pod_groups:
+            ev.append(_POD)
+        self.events.append(ev)
 
     def trace(self) -> dict:
         return {"args": self.args, "events": self.events,
@@ -328,7 +408,7 @@ class OpCounter(TorchDispatchMode):
 
 def analyze(trace: dict) -> Dict:
     """Every count of a trace (see the module docstring)."""
-    dot = traffic = coll = pod = 0.0
+    dot = plain = traffic = coll = pod = 0.0
     coll_by_op: Dict[str, float] = {}
     coll_counts: Dict[str, int] = {}
     kflops: Dict[str, int] = {}
@@ -347,6 +427,7 @@ def analyze(trace: dict) -> Dict:
             kcalls[name] = kcalls.get(name, 0) + 1
             continue
         _, name, ins, outs, allocs, frees, view = ev[:7]
+        flags = ev[7] if len(ev) > 7 else 0
         n_ops += 1
         for tid in frees:
             live -= sizes.pop(tid, 0)
@@ -362,7 +443,10 @@ def analyze(trace: dict) -> Dict:
             res = 1
             for d in _shapes(outs[0])[0][1]:
                 res *= d
-            dot += 2.0 * res * k(dims)
+            f = 2.0 * res * k(dims)
+            dot += f
+            if flags & _PLAIN_FWD:
+                plain += f
         ns, _, op = name.partition(".")
         if ns in _COLL_NAMESPACES and op in _COLLECTIVES:
             base = _COLLECTIVES[op]
@@ -370,11 +454,12 @@ def analyze(trace: dict) -> Dict:
             coll += b
             coll_by_op[base] = coll_by_op.get(base, 0.0) + b
             coll_counts[base] = coll_counts.get(base, 0) + 1
-            if len(ev) > 7 and ev[7]:
+            if flags & _POD:
                 pod += b
     out_ids = {tid: b for tid, b in trace["outputs"]}
     return {
-        "dot_flops": dot, "traffic_bytes": traffic,
+        "dot_flops": dot, "plain_fwd_dot_flops": plain,
+        "traffic_bytes": traffic,
         "collective_bytes": coll, "cross_pod_bytes": pod,
         "coll_by_op": coll_by_op, "coll_counts": coll_counts,
         "kernel_flops": kflops, "kernel_bytes": kbytes,
@@ -385,6 +470,51 @@ def analyze(trace: dict) -> Dict:
                                if tid in args),
         "mem_temp_bytes": peak,
     }
+
+
+def live_at_peak(trace: dict) -> tuple:
+    """What a trace holds at its peak of live bytes above the arguments
+    (``analyze``'s ``mem_temp_bytes``): (the peak, ``[(bytes, op, result
+    specs), ...]``), the bytes of every live buffer summed by the op and
+    result specs that made it, largest first."""
+    def replay(stop=None):
+        sizes, live, peak, at = {}, 0, 0, -1
+        for i, ev in enumerate(trace["events"]):
+            if ev[0] != "op":
+                continue
+            for tid in ev[5]:
+                live -= sizes.pop(tid, 0)
+            for tid, b in ev[4]:
+                sizes[tid] = b
+                live += b
+            if live > peak:
+                peak, at = live, i
+            if i == stop:
+                break
+        return peak, at, sizes
+    peak, at, _ = replay()
+    _, _, sizes = replay(at)
+    made = {tid: (ev[1], tuple(ev[3])) for ev in trace["events"][:at + 1]
+            if ev[0] == "op" for tid, _ in ev[4] if tid in sizes}
+    held: Dict[tuple, int] = {}
+    for tid, b in sizes.items():
+        held[made[tid]] = held.get(made[tid], 0) + b
+    return peak, sorted(((b, op, outs) for (op, outs), b in held.items()),
+                        reverse=True)
+
+
+def dot_redundancy(whole: dict, rank: dict, chips: int):
+    """How many times over ``chips`` ranks compute the whole step's
+    products, from the counts of the whole step and of one rank's program
+    (1.0: no product is computed twice).  Taken over the products outside
+    the kernels' forwards (``plain_fwd_dot_flops`` left out), which both
+    devices compute alike: a kernel's forward is its kernel on the card
+    and its plain version on the CPU, and those are counted apart
+    (``kernel_flops``, a cost formula; ``dot_flops``, the plain route's
+    full products).  None for a step without products."""
+    base = whole["dot_flops"] - whole["plain_fwd_dot_flops"]
+    return ((rank["dot_flops"] - rank["plain_fwd_dot_flops"]) * chips / base
+            if base else None)
 
 
 def save_trace(trace: dict, path: str) -> None:
@@ -461,3 +591,13 @@ def trace(fn, args, device: str = "cuda", place=None, dmesh=None) -> dict:
             "flop_counter": None if place is not None
             else flops.get_total_flops(),
             "seconds": time.perf_counter() - t0}
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.launch.hlo_analysis TRACE [N]: a saved trace's
+    # peak of live bytes and the N largest groups of what it holds there
+    path, top = sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 10
+    peak, held = live_at_peak(load_trace(path))
+    print(f"peak live bytes above the arguments: {peak:,}")
+    for b, op, outs in held[:top]:
+        print(f"{b:>20,}  {op} -> {', '.join(outs)}")

@@ -17,10 +17,13 @@ import glob
 import json
 import os
 
-from repro_torch.launch.hlo_analysis import analyze, load_trace
+from repro_torch.launch.hlo_analysis import (analyze, dot_redundancy,
+                                             load_trace)
 
 # record key -> the counter's key
-FIELDS = {"hlo_dot_flops": "dot_flops", "hlo_traffic_bytes": "traffic_bytes",
+FIELDS = {"hlo_dot_flops": "dot_flops",
+          "hlo_plain_fwd_dot_flops": "plain_fwd_dot_flops",
+          "hlo_traffic_bytes": "traffic_bytes",
           "collective_bytes": "collective_bytes", "coll_by_op": "coll_by_op",
           "coll_counts": "coll_counts", "kernel_flops": "kernel_flops",
           "kernel_bytes": "kernel_bytes", "kernel_calls": "kernel_calls",
@@ -30,6 +33,7 @@ FIELDS = {"hlo_dot_flops": "dot_flops", "hlo_traffic_bytes": "traffic_bytes",
           "mem_alias_bytes": "mem_alias_bytes"}
 # the same for rank 0's trace
 RANK_FIELDS = {"per_device_dot_flops": "dot_flops",
+               "per_device_plain_fwd_dot_flops": "plain_fwd_dot_flops",
                "per_device_collective_bytes": "collective_bytes",
                "per_device_temp_bytes": "mem_temp_bytes",
                "per_device_argument_bytes": "mem_argument_bytes",
@@ -66,9 +70,7 @@ def main(argv=None):
             rec.update({k: pd[v] for k, v in RANK_FIELDS.items()})
             rec["per_device_mem_bytes"] = (pd["mem_argument_bytes"]
                                            + pd["mem_temp_bytes"])
-            rec["dot_redundancy"] = (
-                pd["dot_flops"] * rec["chips"] / hl["dot_flops"]
-                if hl["dot_flops"] else None)
+            rec["dot_redundancy"] = dot_redundancy(hl, pd, rec["chips"])
         with open(jpath, "w") as f:
             json.dump(rec, f, indent=1)
         n += 1

@@ -1,0 +1,52 @@
+"""Both packages' PPO Adam updates, recorded for the parity tests of a
+whole PPO iteration (``test_torch_ppo.py``, ``test_torch_gmi.py``).
+
+Adam divides by ``sqrt(vhat) + eps``: where a gradient element is a few
+eps, it turns the float noise of that gradient (~1e-9) into ~1e-6 of the
+params (ROADMAP C10, C17).  So these tests hold the gradients Adam is
+fed, and the params within a bound plus what Adam makes of those
+gradient differences (``chip_smoke.adam_slack``, which the card's check
+of the same iteration uses too).
+"""
+import os
+import sys
+
+import jax
+
+from repro.rl import ppo as jppo
+from repro_torch.rl import ppo as tppo
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke as cs  # noqa: E402
+
+# Adam's constants in both packages' train_iteration
+LR, B1, B2, EPS = 3e-4, 0.9, 0.999, 1e-8
+# the gradient each Adam update is given, port against reference, as a
+# share of the leaf's largest gradient: float noise of the sums behind
+# it, at most 4.05e-05 over 248 sensor draws of the multi-GMI run
+# (``test_torch_gmi.py --sweep``, ROADMAP C10)
+GRAD_RTOL = 1e-4
+adam_slack = cs.adam_slack
+grad_share = cs.grad_share
+
+
+def record_adam(monkeypatch, rec):
+    """Wrap both packages' ``adam_update`` so that every update appends,
+    leaf by leaf, the raw gradients it was given and the moments (m, v)
+    and step it leaves: ``rec["j"]`` the reference's, ``rec["t"]`` the
+    port's, in the same order (GMI, epoch, minibatch)."""
+    jadam = jppo.adam_update
+
+    def keep(g, m, v, step):
+        rec["j"].append((g, m, v, int(step)))
+
+    def jwrap(grads, state, params, **kw):
+        p2, s2 = jadam(grads, state, params, **kw)
+        jax.debug.callback(keep, jax.tree.leaves(grads),
+                           jax.tree.leaves(s2.mu), jax.tree.leaves(s2.nu),
+                           s2.step, ordered=True)
+        return p2, s2
+    monkeypatch.setattr(jppo, "adam_update", jwrap)
+    monkeypatch.setattr(tppo, "adam_update",
+                        cs.recording_adam(tppo.adam_update, rec["t"]))

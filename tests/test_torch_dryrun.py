@@ -113,6 +113,24 @@ def test_peak_live_bytes_of_a_matmul_chain():
     assert got["dot_flops"] == 4 * 2 * 256 * 64 * 64
 
 
+def test_live_at_peak_names_what_the_peak_holds():
+    """The matmul chain's peak (two activations above the arguments) is
+    what ``hlo_analysis.live_at_peak`` finds, each activation under the
+    product that made it."""
+    x, w = torch.empty(256, 64), torch.empty(64, 64)
+
+    def chain(x, w):
+        h = x
+        for _ in range(4):
+            h = h @ w
+        return h
+    tr = hlo_analysis.trace(chain, (x, w), "cpu")["trace"]
+    peak, held = hlo_analysis.live_at_peak(tr)
+    act = 256 * 64 * 4
+    assert peak == 2 * act == hlo_analysis.analyze(tr)["mem_temp_bytes"]
+    assert held == [(2 * act, "aten.mm", ("f32[256,64]",))]
+
+
 def test_an_argument_no_op_reads_is_not_counted():
     """jit drops unused arguments; the counter counts only what the step
     reads, so the two agree on argument bytes."""

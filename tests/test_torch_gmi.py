@@ -26,6 +26,10 @@ from repro_torch.core import gmi as tgmi
 from repro_torch.core import placement as tplace
 from repro_torch.rl import ppo as tppo
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_adam import (B1, B2, EPS, GRAD_RTOL, LR,  # noqa: E402
+                         adam_slack, grad_share, record_adam)
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 # (template, its size arguments, the logical device count per GPU)
@@ -229,12 +233,6 @@ def _replay(key, T, N, act, epochs):
     return torch.as_tensor(np.stack(noise)), torch.as_tensor(np.stack(perms))
 
 
-# Adam's constants in both packages' train_iteration
-LR, B1, B2, EPS = 3e-4, 0.9, 0.999, 1e-8
-# the gradient each Adam update is given, port against reference, as a
-# share of the leaf's largest gradient: float noise of the sums behind
-# it, at most 4.05e-05 over 248 sensor draws (``--sweep``, ROADMAP C10)
-GRAD_RTOL = 1e-4
 # sensor-matrix seeds (the reference's ``abs(hash("Ant")) % 2**31``):
 # CRC-32 of the name, and three draws in which a GMI's first Adam step on
 # some weight is ill-conditioned (its gradient a few EPS); in the last
@@ -242,64 +240,16 @@ GRAD_RTOL = 1e-4
 SENSOR_DRAWS = [zlib.crc32(b"Ant"), 1367864807, 1109584190, 1546753293]
 
 
-def _record_adam(monkeypatch, rec):
-    """Wrap both packages' ``adam_update`` so that every update appends,
-    leaf by leaf, the raw gradients it was given and the moments (m, v)
-    and step it leaves: ``rec["j"]`` the reference's, ``rec["t"]`` the
-    port's, in the same order (GMI, epoch, minibatch)."""
-    jadam, tadam = jppo.adam_update, tppo.adam_update
-
-    def keep(g, m, v, step):
-        rec["j"].append((g, m, v, int(step)))
-
-    def jwrap(grads, state, params, **kw):
-        p2, s2 = jadam(grads, state, params, **kw)
-        jax.debug.callback(keep, jax.tree.leaves(grads),
-                           jax.tree.leaves(s2.mu), jax.tree.leaves(s2.nu),
-                           s2.step, ordered=True)
-        return p2, s2
-
-    def twrap(grads, state, params, **kw):
-        p2, s2 = tadam(grads, state, params, **kw)
-        rec["t"].append(tuple([x.detach().numpy().copy()
-                               for x in utils.tree_leaves(t)]
-                              for t in (grads, s2.mu, s2.nu))
-                        + (int(s2.step),))
-        return p2, s2
-    monkeypatch.setattr(jppo, "adam_update", jwrap)
-    monkeypatch.setattr(tppo, "adam_update", twrap)
-
-
-def _adam_slack(js, ts, n):
-    """Per leaf, how far Adam can carry the averaged params apart given the
-    gradient differences it was fed: each update moves a GMI's params by
-    ``LR * mhat / (sqrt(vhat) + EPS)``, whose derivative in the gradient
-    is at most ``(1 + |mhat| / den) / den`` (den = sqrt(vhat) + EPS), and
-    the average takes 1/n of it.  Where |g| is a few EPS (den ~ 1e-8)
-    this is ~1e4 times the gradient's float noise."""
-    slack = None
-    for (gj, mj, vj, step), (gt, mt, vt, _) in zip(js, ts):
-        b1c, b2c = 1 - B1 ** step, 1 - B2 ** step
-        out = []
-        for a, b, m1, m2, v1, v2 in zip(gj, gt, mj, mt, vj, vt):
-            den = np.minimum(np.sqrt(v1 / b2c), np.sqrt(v2 / b2c)) + EPS
-            mhat = np.maximum(np.abs(m1), np.abs(m2)) / b1c
-            out.append(LR / n * (1 + mhat / den) / den
-                       * np.abs(b.astype(np.float64) - a))
-        slack = out if slack is None else [x + y for x, y in zip(slack, out)]
-    return slack
-
-
 def _multi_gmi_run(monkeypatch, sensor_seed):
     """Both packages through two iterations of a 2 x 2 TCG_EX layout of
     Ant (see the test).  Metrics and bookkeeping are asserted here; the
     returned readings (with the Adam records), per iteration, are the largest gradient difference
     as a share of its leaf's largest gradient and, per params leaf, ``|port - reference|`` and
-    Adam's slack so far (:func:`_adam_slack`)."""
+    Adam's slack so far (``adam_slack``)."""
     monkeypatch.setattr(jsuite, "hash", lambda s: sensor_seed,
                         raising=False)
     rec = {"j": [], "t": []}
-    _record_adam(monkeypatch, rec)
+    record_adam(monkeypatch, rec)
     g, t, N, T, seed = 2, 2, 8, 6, 0
     n = g * t
     jlay = jplace.plan_tcg_ex_training(g, t, devices=list(range(n)),
@@ -350,12 +300,11 @@ def _multi_gmi_run(monkeypatch, sensor_seed):
                     np.asarray(getattr(js[i][2], f)), err_msg=f)
             assert int(ts[i][1].step) == int(js[i][1].step) == 4 * (it + 1)
         assert len(rec["j"]) == len(rec["t"]) == 16 * (it + 1)
-        grad = max(float(np.abs(b - a).max() / np.abs(a).max())
-                   for (gj, *_), (gt, *_) in zip(rec["j"], rec["t"])
-                   for a, b in zip(gj, gt))
+        grad = grad_share(rec["j"], rec["t"])
         diff = [np.abs(a.numpy() - b) for a, b in
                 zip(utils.tree_leaves(tmean), jax.tree.leaves(_np(jmean)))]
-        readings.append((grad, diff, _adam_slack(rec["j"], rec["t"], n)))
+        readings.append((grad, diff, adam_slack(rec["j"], rec["t"], n, LR,
+                                                B1, B2, EPS)))
     return readings, rec
 
 
@@ -369,7 +318,7 @@ def test_multi_gmi_ppo_matches_reference(monkeypatch, sensor_seed):
     average the params after every iteration.  Metrics within 1e-5, env
     bookkeeping exact; every Adam update's gradients within GRAD_RTOL of
     the leaf's largest; the averaged params within atol 2e-6 plus
-    what Adam makes of those gradient differences (:func:`_adam_slack`).
+    what Adam makes of those gradient differences (``adam_slack``).
 
     The slack is the cause of ROADMAP C10: where a weight's gradient is a
     few EPS, Adam's step ``LR * g / (|g| + EPS)`` turns the gradient's

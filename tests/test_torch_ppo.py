@@ -12,6 +12,7 @@ import ast
 import os
 import subprocess
 import sys
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -20,12 +21,17 @@ import pytest
 import torch
 
 from repro.envs import make_env as jax_make_env
+from repro.envs import suite as jsuite
 from repro.rl import ppo as jppo
 from repro.rl import rollout as jroll
 from repro_torch import interop, utils
 from repro_torch.models.policy import policy_apply, policy_apply_fused
 from repro_torch.rl import ppo as tppo
 from repro_torch.rl import rollout as troll
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_adam import (B1, B2, EPS, GRAD_RTOL, LR,  # noqa: E402
+                         adam_slack, grad_share, record_adam)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 RNG = np.random.default_rng(3)
@@ -127,21 +133,54 @@ def test_gae_and_gae_fused_match_reference():
         np.testing.assert_allclose(gr.numpy(), np.asarray(wr), atol=1e-5)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_train_iteration_matches_reference(fused):
+# sensor-matrix seeds (the reference's ``abs(hash("Ant")) % 2**31``, which
+# changes from process to process, ROADMAP C5): CRC-32 of the name, and
+# the five of draws 0-519 at which the fused iteration's params differed
+# from the reference's by more than 1e-6 (192: 1.161e-05; 307: 6.154e-06;
+# 323: 8.136e-06; 328: 4.500e-06; 430: 1.065e-06), each gradient within
+# 2.9e-6 of its leaf's largest (ROADMAP C17)
+PPO_DRAWS = [zlib.crc32(b"Ant"), 192, 307, 323, 328, 430]
+
+
+@pytest.mark.parametrize("fused,draw", [
+    pytest.param(False, PPO_DRAWS[0], id="False"),
+    pytest.param(True, PPO_DRAWS[0], id="True")] + [
+    pytest.param(True, d, id=f"True-{d}") for d in PPO_DRAWS[1:]])
+def test_train_iteration_matches_reference(monkeypatch, fused, draw):
     """One full PPO iteration from params, Adam state and env state carried
     from the reference, with its noise and permutations replayed: fused
     (megakernel env, fused trunk and GAE, batch-global normalisation,
     single-gather minibatches) and unfused (vmap env, per-minibatch
-    normalisation).  Bookkeeping exact; metrics to 1e-5; obs and env floats
-    to 2e-5.  Params after 4 Adam steps to atol 1e-6, not to the float32
-    ulp: Adam divides by sqrt(vhat), which amplifies the float noise of a
-    small gradient element (one near zero can take a full +-lr = 3e-4
-    step whichever way the noise tips its sign), so params are held looser
-    than the gradients (test_ppo_loss_and_grads_match_reference)."""
+    normalisation), the sensor matrix seeded by ``draw``.  Bookkeeping
+    exact; metrics to 1e-5; obs and env floats to 2e-5; every Adam
+    update's gradients within GRAD_RTOL of the leaf's largest.  Unfused,
+    params after 4 Adam steps to atol 1e-6.  Fused, to atol 2e-6 plus
+    what Adam makes of the gradient differences (``adam_slack``): Adam
+    divides by sqrt(vhat), so a gradient element near zero can take a
+    full +-lr = 3e-4 step whichever way its float noise tips its sign
+    (ROADMAP C10, C17; test_ppo_loss_and_grads_match_reference holds the
+    gradients alone)."""
+    gap, slack, _ = _iteration_run(monkeypatch, fused, draw)
+    if not fused:
+        for d in gap:
+            assert d.max() <= 1e-6, float(d.max())
+        return
+    for d, x in zip(gap, slack):
+        assert (d - (2e-6 + x)).max() <= 0, (float(d.max()), float(x.max()))
+
+
+def _iteration_run(monkeypatch, fused, draw):
+    """Both packages through one PPO iteration (see the test), the
+    bookkeeping, metrics, env state and Adam's gradients asserted; per
+    params leaf, ``|port - reference|`` and Adam's slack, and the
+    gradient share (``grad_share``)."""
+    monkeypatch.setattr(jsuite, "hash", lambda s: draw, raising=False)
+    rec = {"j": [], "t": []}
+    record_adam(monkeypatch, rec)
     T, N = 6, 8
     jcfg = jppo.PPOConfig(num_steps=T, num_epochs=2, num_minibatches=2,
                           use_fused_kernels=fused)
+    assert jcfg.lr == LR
     tcfg = tppo.PPOConfig(**jcfg._asdict())
     jenv, tenv, params, opt, es, obs = _setup(fused, N, key=1)
     key = jax.random.PRNGKey(7)
@@ -164,8 +203,12 @@ def test_train_iteration_matches_reference(fused):
     _assert_env_state(tes, jes, 2e-5)
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=2e-5)
     assert int(topt.step) == int(jo.step) == 4
-    for g, w in zip(utils.tree_leaves(tp), jax.tree.leaves(_np(jp))):
-        np.testing.assert_allclose(g.numpy(), w, atol=1e-6)
+    assert len(rec["j"]) == len(rec["t"]) == 4
+    grad = grad_share(rec["j"], rec["t"])
+    assert grad <= GRAD_RTOL
+    gap = [np.abs(g.numpy() - w) for g, w in
+           zip(utils.tree_leaves(tp), jax.tree.leaves(_np(jp)))]
+    return gap, adam_slack(rec["j"], rec["t"], 1, LR, B1, B2, EPS), grad
 
 
 def test_init_train_defaults_to_cuda():
@@ -247,3 +290,17 @@ def test_tiny_cpu_iteration_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "NO_JAX_OK" in out.stdout and "done:" in out.stdout
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_ppo.py: the fused iteration's readings at
+    # each pinned sensor draw
+    for d in PPO_DRAWS:
+        with pytest.MonkeyPatch.context() as mp:
+            gap, slack, grad = _iteration_run(mp, True, d)
+        print(f"draw {d}: params |port - ref| max "
+              f"{max(float(x.max()) for x in gap):.4g}; gradient share "
+              f"{grad:.3g}; Adam's slack max "
+              f"{max(float(x.max()) for x in slack):.3g}; largest "
+              f"|port - ref| / (2e-6 + slack) "
+              f"{max(float((g / (2e-6 + x)).max()) for g, x in zip(gap, slack)):.3g}")

@@ -327,10 +327,24 @@ def test_recurrent_prefill_matches_jax(other, arch):
 @functools.lru_cache(maxsize=None)
 def _decode_cell(arch):
     """The dry run's decode_32k record of ``arch`` at full width on the
-    (16, 16) mesh, traced once for the tests that read it."""
+    (16, 16) mesh, traced once for the tests that read it, with the bytes
+    of rank 0's collectives by op (``coll_by_name``, from its trace)."""
+    import tempfile
     from repro_torch.launch import dryrun
-    rec = dryrun.run_one(arch, "decode_32k", False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cell.hlo.gz")
+        rec = dryrun.run_one(arch, "decode_32k", False, save_hlo=path)
+        trace = hlo_analysis.load_trace(path.replace(".hlo.gz",
+                                                     "_rank0.hlo.gz"))
     assert rec["status"] == "ok"
+    by_name = {}
+    for ev in trace["events"]:
+        ns, _, op = ev[1].partition(".")
+        if ev[0] == "op" and ns in hlo_analysis._COLL_NAMESPACES and \
+                op in hlo_analysis._COLLECTIVES:
+            by_name[ev[1]] = by_name.get(ev[1], 0) + sum(
+                hlo_analysis._nbytes(s) for s in ev[3])
+    rec["coll_by_name"] = by_name
     return rec
 
 
@@ -349,10 +363,12 @@ def test_recurrent_decode_rank_repeats_little(arch, bound):
 def test_recurrent_decode_rank_receives_its_weight_share(arch):
     """In the same cell each recurrent block's weights reach rank 0 cut to
     the entries it computes with, by one all-to-all over ``model`` a
-    weight: the all-to-alls carry at most 1.2 x the rank's 1/16 of the
-    recurrent blocks' bf16 weights (Mamba2's B, C and dt columns are whole
-    on every rank), and all the rank's collectives move under a quarter
-    of those weights (gathered whole, they moved more than all of them:
+    weight (``all_to_all_single``; DTensor's own all-to-all, which
+    re-splits zamba2's shared attention weights, is counted apart): those
+    all-to-alls carry at most 1.2 x the rank's 1/16 of the recurrent
+    blocks' bf16 weights (Mamba2's B, C and dt columns are whole on every
+    rank), and all the rank's collectives move under a quarter of those
+    weights (gathered whole, they moved more than all of them:
     13,460,358,400 B at zamba2-7b and 3,955,994,624 B at xlstm-1.3b)."""
     from repro_torch.models import transformer as T
     kinds = ("mamba2_", "mlstm_", "slstm_")
@@ -361,8 +377,10 @@ def test_recurrent_decode_rank_receives_its_weight_share(arch):
                         if k.startswith(kinds)
                         for _, v in keystr_leaves(sub))
     rec = _decode_cell(arch)
-    a2a = rec["per_device_coll_by_op"]["all-to-all"]
+    a2a = rec["coll_by_name"]["_c10d_functional.all_to_all_single"]
     assert 0 < a2a <= 1.2 * rec_bytes / 16, (a2a, rec_bytes)
+    assert rec["per_device_coll_by_op"]["all-to-all"] == a2a + \
+        rec["coll_by_name"].get("_dtensor.shard_dim_alltoall", 0)
     assert rec["per_device_collective_bytes"] < rec_bytes / 4, \
         (rec["per_device_collective_bytes"], rec_bytes)
 
@@ -487,24 +505,126 @@ def test_trace_counts_a_gathered_buffer_once(fake4):
         == 2 * 8 * 32 * 4
 
 
-def test_trace_counts_alltoall_result_bytes(fake4):
-    """DTensor's all-to-all (a split moved from one dim to another) is
-    counted at its result's bytes: on the card the result is a buffer of
-    its own, where some PyTorch versions' fake kernel returns a view into
-    a buffer the group's size times larger."""
+def _direct_alltoall(group, shape, gather_dim, shard_dim):
+    """The op counter's trace of DTensor's all-to-all called as the card's
+    route calls it, on a fake f32 tensor of ``shape``, then doubled."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     import torch.distributed.tensor  # noqa: F401  (registers _dtensor ops)
-    group = fake4((2, 2), ("data", "model")).get_group("model").group_name
     with FakeTensorMode() as mode:
-        x = torch.empty(8, 6)
+        x = torch.empty(*shape)
         counter = hlo_analysis.OpCounter(card=True, fake_mode=mode)
         counter.watch((x,))
         with counter:
-            y = torch.ops._dtensor.shard_dim_alltoall(x, 0, 1, group)
+            y = torch.ops._dtensor.shard_dim_alltoall(
+                x, gather_dim, shard_dim, group) * 2
         counter.finish(y)
-    (ev,) = counter.trace()["events"]
+    return counter.trace()
+
+
+def test_trace_counts_alltoall_result_bytes(fake4):
+    """DTensor's all-to-all (a split moved from one dim to another) is a
+    collective, counted as an all-to-all at its result's bytes, and
+    allocated at them: on the card the result is a buffer of its own,
+    where some PyTorch versions' fake kernel returns a view into a buffer
+    the group's size times larger."""
+    group = fake4((2, 2), ("data", "model")).get_group("model").group_name
+    tr = _direct_alltoall(group, (8, 6), 0, 1)
+    ev = tr["events"][0]
     assert ev[1] == "_dtensor.shard_dim_alltoall"
-    assert tuple(y.shape) == (16, 3) and ev[4][0][1] == 16 * 3 * 4
+    assert ev[3] == ["f32[16,3]"] and ev[4][0][1] == 16 * 3 * 4
+    c = hlo_analysis.analyze(tr)
+    assert c["coll_counts"] == {"all-to-all": 1}
+    assert c["coll_by_op"] == {"all-to-all": 16 * 3 * 4}
+    assert c["collective_bytes"] == 16 * 3 * 4 and c["cross_pod_bytes"] == 0
+
+
+@pytest.mark.parametrize("axis", ["model", "pod"])
+def test_trace_counts_cpu_alltoall_as_the_cards(axis):
+    """A DTensor redistribution from Shard(0) to Shard(1) over ``axis`` of
+    a CPU mesh, which DTensor runs as an all-gather of every rank's input,
+    the rank's chunk and a copy, traces as the card's route: one
+    all-to-all at its result's bytes (over ``pod``, cross-pod bytes), the
+    same events, collectives and peak as DTensor's all-to-all called
+    directly (ROADMAP C18)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import spmd
+    from repro_torch.launch.dryrun import fake_world
+    axes = ("pod", "data", "model")
+    with fake_world(4):
+        dm = mesh_lib.device_mesh(mesh_lib.make_mesh((2, 1, 2), axes), "cpu")
+        pl = [Replicate()] * 3
+        pl[axes.index(axis)] = Shard(1)
+
+        def place(args, dev):
+            return (partition.empty_placed(args[0], (axis, None), dm, dev,
+                                           False),)
+        cpu = hlo_analysis.trace(lambda x: spmd.layout(x, pl) * 2,
+                                 (torch.empty(8, 12, device="meta"),),
+                                 "cuda", place=place, dmesh=dm)["trace"]
+        card = _direct_alltoall(dm.get_group(axis).group_name, (4, 12), 0, 1)
+    assert [ev[:7] for ev in cpu["events"]] == \
+        [ev[:7] for ev in card["events"]]
+    c, d = hlo_analysis.analyze(cpu), hlo_analysis.analyze(card)
+    assert c["coll_counts"] == d["coll_counts"] == {"all-to-all": 1}
+    assert c["coll_by_op"] == d["coll_by_op"] == {"all-to-all": 8 * 6 * 4}
+    assert c["mem_temp_bytes"] == d["mem_temp_bytes"] == 2 * 8 * 6 * 4
+    assert c["cross_pod_bytes"] == (8 * 6 * 4 if axis == "pod" else 0)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_dot_redundancy_is_the_same_traced_for_either_device(shape):
+    """granite-moe-1b-a400m at full width, one layer, on (16, 16): traced
+    for the card (kernels recorded; the flash backward recomputes the
+    plain attention) and for the CPU (the plain attention in the kernel's
+    place, DTensor on a CPU mesh), rank 0 reads the same
+    ``dot_redundancy`` and the same collectives (ROADMAP C18).  The two
+    programs' products differ: the CPU's plain forward computes the full
+    score square that the card's kernel counts as causal pairs in
+    ``kernel_flops``; the ratio leaves every kernel's forward out on both
+    devices."""
+    from repro_torch.launch import dryrun
+    card, cpu = (dryrun.run_one("granite-moe-1b-a400m", shape, False,
+                                cfg_overrides={"num_layers": 1}, device=d)
+                 for d in ("cuda", "cpu"))
+    assert card["per_device_kernel_calls"]["flash_attention"] > 0
+    assert cpu["per_device_plain_fwd_dot_flops"] > 0
+    assert card["hlo_dot_flops"] != cpu["hlo_dot_flops"]
+    assert card["dot_redundancy"] == cpu["dot_redundancy"]
+    for k in ("per_device_coll_by_op", "per_device_coll_counts",
+              "per_device_collective_bytes"):
+        assert card[k] == cpu[k], k
+
+
+def test_row_parallel_backward_keeps_its_split(fake4):
+    """A row-parallel product (``spmd.row``: ``h``'s features and ``w``'s
+    rows split over ``model``) whose output gradient arrives as a partial
+    sum over ``model``: the gradient is summed once (one all-reduce) and
+    both gradients are computed on the rank's split, 3 x 2 x 16 x 8 x 12
+    FLOPs with the forward.  Left partial, PyTorch 2.13's DTensor gathers
+    ``h`` and ``w`` whole and computes the gradients in full on every
+    rank (ROADMAP C18: zamba2-7b train_4k read x1.157 for x1.058 at one
+    super-block)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from repro_torch.dist import spmd
+    dm = fake4((2, 2), ("data", "model"))
+
+    def prog(h, w):
+        h, w = h.detach().requires_grad_(), w.detach().requires_grad_()
+        y = spmd.row(h, {"w": w})
+        g = DTensor.from_local(torch.ones(2, 8, 12), dm,
+                               [Shard(0), Partial()])
+        return torch.autograd.grad(y, (h, w), g)
+
+    def place(args, dev):
+        return (partition.empty_placed(args[0], ("data", None, "model"), dm,
+                                       dev, False),
+                partition.empty_placed(args[1], ("model", None), dm, dev,
+                                       False))
+    c = hlo_analysis.trace(prog, (torch.empty(4, 8, 16, device="meta"),
+                                  torch.empty(16, 12, device="meta")),
+                           "cuda", place=place, dmesh=dm)["counts"]
+    assert c["dot_flops"] == 3 * 2 * 16 * 8 * 12
+    assert c["coll_by_op"] == {"all-reduce": 2 * 8 * 12 * 4}
 
 
 def test_trace_counts_cross_pod_bytes():
