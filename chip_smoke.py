@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's thirteen paths: synchronous PPO,
+"""On-card smoke test of the PyTorch port's fourteen paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
 internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
 synchronous PPO (several GMIs on one card, one CUDA stream each), async
@@ -11,8 +11,10 @@ granite-moe-1b-a400m's and Mamba2/zamba2 at zamba2-7b's full width, LM
 training (``launch/train.py --workload lm``) at internlm2-1.8b's and
 hubert-xlarge's full width and depth with gradients through the attention
 and mLSTM kernels' autograd Functions, serving pixtral-12b's patch
-embeddings ahead of its text at full width, and sharded LM steps as rank
-0 of the production mesh and on an NCCL world.
+embeddings ahead of its text at full width, sharded LM steps as rank
+0 of the production mesh and on an NCCL world, and serving the two
+sliding-window families, gemma2-27b at full width and depth and
+mixtral-8x7b at full width, at prompts longer than their window.
 
     python3 chip_smoke.py
 
@@ -68,7 +70,17 @@ each asserting, in order:
    empty slots and idle rows; mLSTM at dh 64, chunk 16, S = 48 and S = 1
    from a non-zero state with strongly negative log_f and large log_i;
    flash at hubert-xlarge's B = 4 x 512, 16 on 16 heads, hd 80,
-   bidirectional, in bf16 and f32); and the autograd Functions that
+   bidirectional, in bf16 and f32; both attention kernels in bf16 at
+   phases 22 and 23's shapes, one ulp: flash causal at B = 2 x 4608 and
+   paged decode at B = 4, positions [4640, 4640, 543, 543], 8-token
+   pages, a 640-page table, at gemma2-27b's 32 q on 16 kv heads, hd 128,
+   softcap 50, with window 4096 (a local layer: flash blocks skip the key
+   tiles below the window, decode splits drop the pages before it) and
+   none (a global layer), and at mixtral-8x7b's 32 q on 8 kv heads with
+   window 4096; at the softcap q is scaled by 20, so the scores spread
+   over tens and the cap bends them, and the kernels' outputs are also
+   held at least 8 ulps (median) from the uncapped plain version); and
+   the autograd Functions that
    carry both training kernels' gradients (C12), in f32: the forward the
    kernel, every input's gradient against autograd of the plain version
    within 1e-4 of the leaf's largest magnitude (flash causal at 16 q on 8
@@ -180,10 +192,14 @@ each asserting, in order:
    phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512, at
    phase 11's stablelm-12b B = 2 x 512, hd 160, and at phase 17's
    zamba2-7b B = 2 x 512, hd 112, and hubert-xlarge's bidirectional
-   B = 4 x 512, hd 80, against bidirectional SDPA, in the row's
-   ``shapes`` list; paged
-   decode at phase 8's step and at phase 17's, B = 4, hd 112, in its
-   ``shapes`` list), and the device time of every kernel (and of the library call,
+   B = 4 x 512, hd 80, against bidirectional SDPA, and phases 22 and
+   23's windowed and softcapped B = 2 x 4608 at gemma2-27b's and
+   mixtral-8x7b's heads (SDPA with a boolean window mask where there is
+   no softcap, else ``flex_attention`` under ``torch.compile`` with the
+   cap as its score_mod and a block mask, its ulps from the plain
+   version printed), in the row's ``shapes`` list; paged
+   decode at phase 8's step, at phase 17's, B = 4, hd 112, and at phases
+   22 and 23's, in its ``shapes`` list), and the device time of every kernel (and of the library call,
    where there is one) under ``torch.profiler``, since small calls are
    host-bound, by launched kernel where a call launches more than one (a
    profile that sees no kernel is taken again, with a warning line); the
@@ -310,7 +326,35 @@ each asserting, in order:
    xlstm-1.3b as rank 0 of a (2, 2) mesh, its mLSTM kernel on 2 of 4
    heads; (b) a real NCCL world of ``torch.cuda.device_count()`` ranks
    (one card: a (1, 1) mesh) running reduced internlm2-1.8b's sharded
-   HAR step, loss within 1e-5 of the unsharded step's on the card.
+   HAR step, loss within 1e-5 of the unsharded step's on the card;
+22. (also before 13, after every earlier phase's engine and params are
+   freed; the live CUDA bytes at its start printed) gemma2-27b: (a) a
+   small f32 engine (reduced: window 16 on the even layers, odd layers
+   global, softcaps 50 and 30) with whole-prompt prefill, six prompts of
+   24-40 tokens over 4 slots, 16 greedy tokens each, on the card against
+   the CPU: greedy tokens and page tables identical; (c) full width and
+   depth in bf16 (46 layers, d 4608, 32 q on 16 kv heads, hd 128, d_ff
+   36864, vocab 256,000), weights drawn straight into bf16 from seed 0
+   (``init_model(..., cast=True)``), a paged ``ServeEngine`` of 4 slots,
+   ``max_seq`` 5120, whole-prompt prefill, two 4608-token and two
+   512-token prompts (one B = 2 dispatch each), 32 greedy tokens each, so
+   the long rows decode at positions 4608-4638, past the window, with the
+   launch counters set to 0 just before and read just after: 46 flash
+   launches a dispatch, 46 paged-decode launches a decode step, nothing
+   else; it prints prefill and decode tok/s, setup seconds, peak device
+   memory, the ``oracle_generate`` match count of a long and a short
+   request (printed, not asserted) and, after the measured run, one
+   decode-only step of the same prompts at 4 rows under
+   ``torch.profiler`` (``launch/profile.report``: wall, device busy and
+   idle share; phase 11 prints the same);
+23. (also before 13) mixtral-8x7b the same way: (a) reduced (window 16
+   on every layer, 4 experts top-2) card vs CPU; (c) full width in bf16
+   (d 4096, 32 q on 8 kv heads, hd 128, window 4096 on every layer, 8
+   experts of d_ff 14336 top-2), its depth cut to ``W_MX_LAYERS`` of 32
+   layers (93.4 GB in bf16 at full depth), the same traffic: 8 launches
+   a dispatch and a decode step; it also prints the share of expert
+   assignments dropped by capacity in the two dispatches, in all and by
+   layer.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -468,6 +512,25 @@ SH_DECODE = (("zamba2-7b", 1.2), ("xlstm-1.3b", 1.5))
 # chunk): a prefill_32k rank's 2 rows of xlstm-1.3b over 16 model ranks
 # (S cut from 32,768) and the reduced (2, 2) rank's train and prefill
 SH_MLSTM = ((2, 4, 2048, 512, 32, 256), (2, 4, 128, 64, 32, 128))
+# phases 22 and 23: the sliding-window families at their window's length:
+# gemma2-27b at full depth, mixtral-8x7b cut to W_MX_LAYERS of its 32
+# layers (93.4 GB in bf16 at full depth, over one card); 4 slots, max_seq
+# W_MAX_SEQ, two W_LONG-token and two W_SHORT-token prompts (one B = 2
+# whole-prompt dispatch each), W_GEN greedy tokens each, so the long rows
+# decode at positions 4608-4639, past the 4096 window; phase 2 holds both
+# attention kernels at those shapes: flash at W_FLASH (B, S), paged decode
+# at W_DECODE_POS (the run's positions near its end), 8-token pages;
+# phase 11 runs at W_SLOTS slots and W_GEN tokens too
+GARCH, MXARCH = "gemma2-27b", "mixtral-8x7b"
+W_MX_LAYERS = 8
+W_SLOTS, W_MAX_SEQ, W_GEN = 4, 5120, 32
+W_LONG, W_SHORT = 4608, 512
+W_FLASH = (2, W_LONG)
+W_DECODE_POS = [4640, 4640, 543, 543]
+# phase 2's softcapped checks: q scaled so the scores spread over tens,
+# where a cap of 50 is far from the identity, and the least median
+# distance in bf16 ulps from the uncapped plain version
+CAP_Q_SCALE, CAP_APART = 20.0, 8.0
 KERNELS = {
     "env_mega_step": ("src/repro_torch/csrc/env_megakernel.cu",
                       "src/repro/kernels/env_megakernel.py:226"),
@@ -1732,65 +1795,61 @@ def drive_engine(eng, longs, shorts, huge):
     return done + eng.run_until_idle()
 
 
-def check_small_engine(dev):
-    """A small f32 engine (reduced internlm2-1.8b: 2 layers, d = 256,
-    hd 64, G = 2) with both kernels, chunked prefill and a shared head that
-    ends inside a page (copy-on-write), on the card and on the CPU from the
-    same params: greedy tokens identical, page tables equal."""
+def check_small_engine(dev, arch, drive, kernels, max_seq=96,
+                       chunk_prefill=0):
+    """A small f32 engine of ``arch`` reduced, 4 slots, on the CPU and on
+    the card from the same params, each driven by ``drive(eng)`` (it
+    submits, drains and returns (requests, completions)): every request
+    completes its budget, greedy tokens are identical, page tables equal,
+    and each of ``kernels`` launched on the card.  Returns the card's
+    launches."""
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeEngine
-    cfg = get_reduced(ARCH)
+    cfg = get_reduced(arch)
     params = T.init_model(0, cfg, "cpu")
     toks, tables = {}, {}
     for d in ("cpu", dev):
-        eng = ServeEngine(cfg, params, max_slots=4, max_seq=96, device=d,
-                          chunk_prefill=16)
-        longs, shorts, huge = serve_stream(cfg.vocab_size, 1, 20, 3, 40, 2,
-                                           12, 70, 12)
+        eng = ServeEngine(cfg, params, max_slots=4, max_seq=max_seq,
+                          device=d, chunk_prefill=chunk_prefill)
         ops.reset_launches()
-        done = drive_engine(eng, longs, shorts, huge)
-        assert len(done) == 6 and all(len(c.tokens) == 12 for c in done)
-        toks[str(d)] = sorted((len(c.request.tokens), c.tokens)
-                              for c in done)
-        tables[str(d)] = eng._table.copy()
+        reqs, done = drive(eng)
         launches = dict(ops.LAUNCHES)
+        by_rid = {c.rid: c.tokens for c in done}
+        assert len(done) == len(reqs) and all(
+            len(by_rid[r.rid]) == r.max_new_tokens for r in reqs)
+        toks[str(d)] = [by_rid[r.rid] for r in reqs]
+        tables[str(d)] = eng._table.copy()
     assert toks["cpu"] == toks[str(dev)], "card and CPU tokens differ"
     assert (tables["cpu"] == tables[str(dev)]).all()
-    assert launches["paged_attention"] > 0 and \
-        launches["flash_attention"] > 0, launches
+    assert all(launches[k] > 0 for k in kernels), launches
     return launches
 
 
-def check_small_xlstm_engine(dev):
-    """A small f32 engine (reduced xlstm-1.3b: one mLSTM and one sLSTM
-    block, d = 256, dh 64) with chunked prefill and more requests than
-    slots, on the card and on the CPU from the same params: greedy tokens
-    identical, page tables equal."""
-    from repro_torch.configs import get_reduced
-    from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.serve import ServeEngine
-    cfg = get_reduced(XARCH)
-    params = T.init_model(0, cfg, "cpu")
-    toks, tables = {}, {}
-    for d in ("cpu", dev):
-        eng = ServeEngine(cfg, params, max_slots=4, max_seq=96, device=d,
-                          chunk_prefill=16)
-        longs, shorts, huge = serve_stream(cfg.vocab_size, 1, 20, 3, 40, 2,
-                                           12, 64, 12)
-        ops.reset_launches()
-        done = drive_engine(eng, longs, shorts, huge)
-        assert len(done) == 6 and all(len(c.tokens) == 12 for c in done)
-        toks[str(d)] = sorted((len(c.request.tokens), c.tokens)
-                              for c in done)
-        tables[str(d)] = eng._table.copy()
-        launches = dict(ops.LAUNCHES)
-    assert toks["cpu"] == toks[str(dev)], "card and CPU tokens differ"
-    assert (tables["cpu"] == tables[str(dev)]).all()
-    assert launches["mlstm_chunkwise"] > 0, launches
-    return launches
+def small_waves(huge_len):
+    """``check_small_engine``'s ``drive`` for phases 7 and 9: the
+    ``drive_engine`` waves of three 40-token prompts sharing a 20-token
+    head, two of 12 and one of ``huge_len``, 12 greedy tokens each."""
+    def drive(eng):
+        longs, shorts, huge = serve_stream(eng.cfg.vocab_size, 1, 20, 3, 40,
+                                           2, 12, huge_len, 12)
+        return longs + shorts + [huge], drive_engine(eng, longs, shorts,
+                                                     huge)
+    return drive
+
+
+def windowed_prompts(eng):
+    """``check_small_engine``'s ``drive`` for phases 22 and 23 (a): six
+    prompts of 24-40 tokens, 16 greedy tokens each, past the reduced
+    window of 16 in prefill and in decode, over 4 slots."""
+    import numpy as np
+    from repro_torch.serve import Request
+    assert eng.cfg.sliding_window == 16
+    rng = np.random.default_rng(7)
+    reqs = [Request(tokens=rng.integers(0, eng.cfg.vocab_size, n),
+                    max_new_tokens=16) for n in (24, 40, 31, 40, 24, 36)]
+    return reqs, eng.serve(reqs)
 
 
 def serve_stats(eng, done, reqs, wall, setup_s, gen_tokens):
@@ -1941,32 +2000,54 @@ def run_serve(dev):
     return launches, stats, eng
 
 
-def run_stablelm(dev):
-    """stablelm-12b at full width in bf16 (d 5120, 32 q heads on 8 kv
-    heads, hd 160), its depth cut to SLAYERS of 40 layers, random weights
-    from seed 0: two 512-token and two 128-token prompts, 32 greedy tokens
-    each, through a paged ``ServeEngine`` with whole-prompt prefill, the
-    launch counters set to 0 just before and read just after."""
+def run_whole_prompt(dev, arch, layers, long_len, short_len, max_seq):
+    """``arch`` at full width in bf16, random weights from seed 0 drawn
+    straight into bf16 (``init_model(..., cast=True)``), its depth cut to
+    ``layers`` where given: two ``long_len``-token and two
+    ``short_len``-token prompts, W_GEN greedy tokens each, through a paged
+    ``ServeEngine`` of W_SLOTS slots with whole-prompt prefill (one B = 2
+    dispatch a length), the launch counters set to 0 just before and read
+    just after: one flash launch a layer a dispatch and one paged-decode
+    launch a layer a decode step, nothing else; the long rows decode up
+    to position long_len + W_GEN - 2.  The stats add the MoE drop share of
+    the two dispatches (an MoE arch), the ``oracle_generate`` match count
+    of a long and a short request and, after the measured run, one
+    decode-only step of the four prompts again under ``torch.profiler``
+    (``launch/profile.report``: wall, device busy and idle share).
+    Returns (launches, stats)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch import profile
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.telemetry import ServingTelemetry
-    full = get_config(SARCH)
-    cfg = full.replace(num_layers=SLAYERS)
-    assert cfg.resolved_head_dim == 160 and full.num_layers == 40
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers) if layers else full
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, T.init_model(0, cfg, dev), max_slots=4,
-                      max_seq=1024, device=dev, chunk_prefill=512)
+    params = T.init_model(0, cfg, dev, cast=True)
+    eng = ServeEngine(cfg, params, max_slots=W_SLOTS, max_seq=max_seq,
+                      device=dev)
+    del params
+    assert eng.chunk_prefill == 0
     # warm-up: cuBLAS handles and bf16 GEMM heuristics, one small request
     eng.serve([Request(tokens=list(range(1, 40)), max_new_tokens=3)])
     eng.telemetry = ServingTelemetry(eng.max_slots)
     eng.prefill_dispatches = 0
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n),
-                    max_new_tokens=32) for n in (512, 512, 128, 128)]
+                    max_new_tokens=W_GEN)
+            for n in (long_len, long_len, short_len, short_len)]
+    # the decode positions the run reaches, read from the host array the
+    # engine passes each step (no sync)
+    decode, top = eng._decode, [-1]
+
+    def seen(caches, tok, pos, *a):
+        top[0] = max(top[0], int(pos.max()))
+        return decode(caches, tok, pos, *a)
+    eng._decode = seen
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -1975,15 +2056,39 @@ def run_stablelm(dev):
     done = eng.run_until_idle()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    del eng._decode
     tel = eng.telemetry
+    L = cfg.num_layers
     want = {k: 0 for k in TOL}
-    want["paged_attention"] = SLAYERS * tel.total_decode_steps
-    want["flash_attention"] = SLAYERS * eng.prefill_dispatches
+    want["paged_attention"] = L * tel.total_decode_steps
+    want["flash_attention"] = L * eng.prefill_dispatches
     assert launches == want, (launches, want)
-    assert eng.prefill_dispatches >= 1 and tel.total_decode_steps >= 31
-    stats = {"layers": f"{SLAYERS} of {full.num_layers}",
-             **serve_stats(eng, done, reqs, wall, setup_s, 32)}
+    assert eng.prefill_dispatches == 2, eng.prefill_dispatches
+    assert tel.total_decode_steps >= W_GEN - 1
+    assert top[0] == long_len + W_GEN - 2, top[0]
+    stats = {"layers": f"{L} of {full.num_layers}",
+             "last_decode_position": top[0],
+             **serve_stats(eng, done, reqs, wall, setup_s, W_GEN)}
+    if cfg.num_experts:
+        stats["prefill_drop_share"], stats["prefill_drop_share_by_layer"] = \
+            drop_share(eng, [np.stack([r.tokens for r in reqs
+                                       if len(r.tokens) == n])
+                             for n in (long_len, short_len)])
     stats["oracle"] = oracle_agreement(eng, done, [reqs[0], reqs[2]])
+    # the profile: admission (both dispatches and a decode step), two
+    # decode steps, then the profiled one at W_SLOTS rows
+    for r in reqs:
+        eng.submit(Request(tokens=r.tokens, max_new_tokens=8))
+    for _ in range(3):
+        eng.step()
+    assert eng.active_count == W_SLOTS and not any(
+        st.prefilling for st in eng._slots if st is not None), \
+        "the profiled step is not decode-only"
+    prof = profile.report(f"{arch} ({L} layers): one decode step at "
+                          f"{W_SLOTS} rows", *profile.profile_once(eng.step))
+    eng.run_until_idle()
+    prof["idle_ms_a_layer"] = (prof["wall_ms"] - prof["busy_ms"]) / L
+    stats["decode_profile"] = prof
     return launches, stats
 
 
@@ -3639,6 +3744,159 @@ def run_pixtral(dev):
     return launches, stats
 
 
+# ------------------------------------------ sliding-window serving ----
+def windowed_cases(arch):
+    """(heads, kv heads, hd, [(window, softcap), ...]) of ``arch``'s
+    attention layers: gemma2-27b's local (window 4096) and global layers,
+    both with its softcap; mixtral-8x7b's one windowed kind."""
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    cases = [(c.sliding_window, c.attn_softcap)]
+    if c.local_global:
+        cases.append((None, c.attn_softcap))
+    return c.num_heads, c.num_kv_heads, c.resolved_head_dim, cases
+
+
+def check_windowed_shapes(gen, dev):
+    """Phase 2 at phases 22 and 23's shapes, bf16 under the one-ulp gate:
+    flash causal at W_FLASH, where the local layers' blocks skip the key
+    tiles below the window, and paged decode at W_DECODE_POS with the
+    engine's 8-token pages and table width, where the long rows' splits
+    drop the pages before the window; each window and softcap of the
+    arch's layers.  Where a layer has a softcap, q is scaled by
+    CAP_Q_SCALE, so the scores spread over tens and the cap bends them
+    well away from themselves: there the kernel's output is also held at
+    least CAP_APART ulps (median over elements) from the plain version
+    without the cap, which a kernel that left the cap out would match.
+    Returns (lines, [(err, ulps)] flash, [...] paged)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import num_splits
+    from repro_torch.utils import bf16_ulps
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lines, flash, paged = [], [], []
+    for arch in (GARCH, MXARCH):
+        H, KH, hd, cases = windowed_cases(arch)
+        fa = flash_inputs(*W_FLASH, H, KH, hd, gen, dev, bf)
+        pa = paged_inputs(len(W_DECODE_POS), H, KH, hd, 8, W_MAX_SEQ // 8,
+                          W_DECODE_POS, gen, dev, bf)
+        res = []
+        for window, cap in cases:
+            fc, pc = fa, pa
+            if cap:
+                fc = (fa[0] * CAP_Q_SCALE, *fa[1:])
+                pc = (pa[0] * CAP_Q_SCALE, *pa[1:])
+            f = check_flash(fc, 0.0, causal=True, window=window, softcap=cap)
+            p = check_paged(pc, 0.0, window=window, softcap=cap)
+            flash.append(f)
+            paged.append(p)
+            at = (f"window {window} softcap {cap}"
+                  + (f" (q x {CAP_Q_SCALE:g})" if cap else ""))
+            line = (f"{at}: flash B={W_FLASH[0]} S={W_FLASH[1]} "
+                    f"max_abs_err={f[0]:.3g} ({f[1]:.3g} ulp), paged "
+                    f"B={len(W_DECODE_POS)} positions {W_DECODE_POS} "
+                    f"max_abs_err={p[0]:.3g} ({p[1]:.3g} ulp)")
+            if cap:
+                apart = (bf16_ulps(
+                    ops.flash_attention(*fc, causal=True, window=window,
+                                        softcap=cap),
+                    ref.attention_ref(*fc, causal=True, window=window),
+                    median=True), bf16_ulps(
+                    ops.paged_attention(*pc, window=window, softcap=cap),
+                    ref.paged_attention_ref(*pc, window=window),
+                    median=True))
+                assert min(apart) >= CAP_APART, (arch, window, apart)
+                line += (f"; from the uncapped plain version flash "
+                         f"{apart[0]:.3g} and paged {apart[1]:.3g} ulp "
+                         f"(median, at least {CAP_APART})")
+            res.append(line)
+        splits = num_splits(len(W_DECODE_POS), KH, 8, W_MAX_SEQ // 8, sms)
+        lines.append(f"[check] {arch} main-path shapes ({H} q on {KH} kv "
+                     f"heads, hd {hd}, bf16, tol one bf16 ulp of each "
+                     f"element; paged decode in {splits} splits a row): "
+                     + "; ".join(res))
+        del fa, pa
+    return lines, flash, paged
+
+
+def flex_library(ft, window, cap):
+    """The one PyTorch call that computes flash's function with a softcap
+    (SDPA has none): ``flex_attention`` under ``torch.compile``, the cap
+    as its ``score_mod`` and the causal (and window) mask as a block mask
+    built once, as SDPA's boolean mask is.  Timed only, never used by the
+    port; its caches go under the checkout's ``build/``.  Returns (the
+    call, its output's largest bf16 ulps from ``ref``'s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.utils import bf16_ulps
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "inductor")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", cache)
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache, "triton"))
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    flex = torch.compile(flex_attention, dynamic=False)
+    W = window or ft[0].shape[2]
+
+    def visible(b, h, qi, ki):
+        return (ki <= qi) & (ki > qi - W)
+
+    def capped(score, b, h, qi, ki):
+        return torch.tanh(score / cap) * cap
+    S = ft[0].shape[2]
+    mask = create_block_mask(visible, None, None, S, S, device=ft[0].device)
+
+    def call():
+        return flex(*ft, score_mod=capped, block_mask=mask, enable_gqa=True)
+    want = ref.attention_ref(*(t.transpose(1, 2) for t in ft), causal=True,
+                             window=window, softcap=cap)
+    return call, bf16_ulps(call().transpose(1, 2), want)
+
+
+def windowed_timings(gen, dev):
+    """Phase 13's entries, (the shape, (kernel, plain, library, cost,
+    peak)), for flash and for paged decode at phases 22 and 23's shapes,
+    each window and softcap of their layers, and the library's bf16 ulps
+    from the plain version (flash) by shape.  The library call: SDPA with
+    a boolean window mask, or, with a softcap, ``flex_library``; none for
+    paged decode."""
+    from repro_torch.kernels import cost, ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    flash_t, paged_t, lib_ulps = [], [], []
+    for arch in (GARCH, MXARCH):
+        H, KH, hd, cases = windowed_cases(arch)
+        fq, fk, fv = flash_inputs(*W_FLASH, H, KH, hd, gen, dev, bf)
+        ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
+        pa = paged_inputs(len(W_DECODE_POS), H, KH, hd, 8, W_MAX_SEQ // 8,
+                          W_DECODE_POS, gen, dev, bf)
+        i = torch.arange(W_FLASH[1], device=dev)
+        for w, cap in cases:
+            kw = {"window": w, "softcap": cap}
+            at = {"arch": arch, **kw}
+            if cap is None:
+                vis = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
+                lib = lambda ft=ft, vis=vis: sdpa(*ft, attn_mask=vis,
+                                                   enable_gqa=True)
+                lib_ulps.append((at, "SDPA", None))
+            else:
+                lib, u = flex_library(ft, w, cap)
+                lib_ulps.append((at, "flex_attention", u))
+            flash_t.append(({"B": W_FLASH[0], "S": W_FLASH[1], "hd": hd,
+                             "causal": True, **at}, (
+                lambda fq=fq, fk=fk, fv=fv, kw=kw: ops.flash_attention(
+                    fq, fk, fv, causal=True, **kw),
+                lambda fq=fq, fk=fk, fv=fv, kw=kw: ref.attention_ref(
+                    fq, fk, fv, causal=True, **kw), lib,
+                cost.flash_attention(*W_FLASH, H, KH, hd, 2, True, w),
+                cost.PEAK_BF16)))
+            paged_t.append(({"B": len(W_DECODE_POS), "H": H, "hd": hd,
+                             **at}, (
+                lambda pa=pa, kw=kw: ops.paged_attention(*pa, **kw),
+                lambda pa=pa, kw=kw: ref.paged_attention_ref(*pa, **kw),
+                None, cost.paged_attention(*pa, window=w), cost.PEAK_BF16)))
+    return flash_t, paged_t, lib_ulps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3738,6 +3996,16 @@ def main() -> int:
         errs["paged_attention"] = max(errs["paged_attention"], pe[0])
         ulps["paged_attention"] = max(ulps["paged_attention"], pe[1])
         flash += fe
+    # phases 22 and 23: gemma2-27b's and mixtral-8x7b's windows and softcap
+    # at their long prompts' and decode positions' lengths
+    wlines, wflash, wpaged = check_windowed_shapes(gen, dev)
+    for line in wlines:
+        print(line)
+    errs["paged_attention"] = max([errs["paged_attention"]]
+                                  + [e for e, _ in wpaged])
+    ulps["paged_attention"] = max([ulps["paged_attention"]]
+                                  + [u for _, u in wpaged])
+    flash += wflash
     # hubert-xlarge's bidirectional attention at hd 80 (phase 18 (c))
     hub = [check_flash(flash_inputs(*HUBERT_FLASH, gen, dev, dt), tol,
                        causal=False)
@@ -3900,7 +4168,9 @@ def main() -> int:
               f"round, launches {la}")
 
     # 7. small serving engine against the CPU -------------------------------
-    la = check_small_engine(dev)
+    la = check_small_engine(dev, ARCH, small_waves(70),
+                            ("paged_attention", "flash_attention"),
+                            chunk_prefill=16)
     print(f"[parity] small f32 serving engine ({ARCH} reduced, both "
           f"kernels, chunked prefill, shared head with copy-on-write) card "
           f"vs CPU: greedy tokens and page tables identical, launches {la}")
@@ -3918,7 +4188,8 @@ def main() -> int:
     del eng
 
     # 9. small xlstm engine against the CPU -------------------------------
-    la = check_small_xlstm_engine(dev)
+    la = check_small_engine(dev, XARCH, small_waves(64),
+                            ("mlstm_chunkwise",), chunk_prefill=16)
     print(f"[parity] small f32 serving engine ({XARCH} reduced, mLSTM "
           f"kernel, chunked prefill, reused slots) card vs CPU: greedy "
           f"tokens and page tables identical, launches {la}")
@@ -3936,7 +4207,9 @@ def main() -> int:
 
     # 11. stablelm-12b serving: hd 160 through both attention kernels -----
     torch.cuda.reset_peak_memory_stats(dev)
-    la, stats = run_stablelm(dev)
+    full = get_config(SARCH)
+    assert full.resolved_head_dim == 160 and full.num_layers == 40
+    la, stats = run_whole_prompt(dev, SARCH, SLAYERS, 512, 128, 1024)
     by_path["serve_stablelm"] = la
     print(f"[serve_stablelm] {SARCH} full width bf16 (d 5120, 32 q on 8 kv "
           f"heads, hd 160; depth cut to {SLAYERS} of 40 layers), 4 slots, "
@@ -3944,7 +4217,9 @@ def main() -> int:
           f"{json.dumps(stats)}")
     print(f"[serve_stablelm] prefill {stats['prefill_tok_s']:,.1f} tok/s, "
           f"decode {stats['decode_tok_s']:,.1f} tok/s "
-          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows)")
+          f"({stats['decode_ms_per_step']:.3f} ms a step at up to 4 rows); "
+          f"profiled decode step idle share "
+          f"{stats['decode_profile']['idle_share']:.4f}")
 
     # 12. multi-GMI synchronous PPO on one card ---------------------------
     t12 = time.perf_counter()
@@ -4315,6 +4590,48 @@ def main() -> int:
           f" (tol 1e-5); launches {json.dumps(rec['launches'])}")
     print(f"[sharded] phase 21 launches {json.dumps(la)}; took "
           f"{time.perf_counter() - t21:.1f} s")
+
+    # 22-23. the sliding-window families at their window's length --------
+    # gemma2-27b's 54.4 GB of bf16 weights and 7.7 GB of cache need the
+    # card: no earlier phase's engine or params is held here
+    del sh, lm_stats
+    for tag, arch, layers, key in (("22", GARCH, None, "serve_gemma2"),
+                                   ("23", MXARCH, W_MX_LAYERS,
+                                    "serve_mixtral")):
+        tw = time.perf_counter()
+        torch.cuda.empty_cache()
+        live = live_cuda_bytes()
+        la = check_small_engine(dev, arch, windowed_prompts,
+                                ("flash_attention", "paged_attention"),
+                                max_seq=64)
+        print(f"[{key}] ({tag}a) small f32 engine ({arch} reduced, window "
+              f"16, prompts of 24-40 tokens, 16 greedy tokens each) card vs "
+              f"CPU: greedy tokens and page tables identical; launches {la}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        assert get_config(arch).sliding_window < W_LONG
+        la, stats = run_whole_prompt(dev, arch, layers, W_LONG, W_SHORT,
+                                     W_MAX_SEQ)
+        by_path[key] = la
+        dp = stats["decode_profile"]
+        print(f"[{key}] ({tag}c) {arch} full width bf16, {stats['layers']} "
+              f"layers, weights drawn in bf16, {W_SLOTS} slots, max_seq "
+              f"{W_MAX_SEQ}, whole-prompt prefill, 2 x {W_LONG} + 2 x "
+              f"{W_SHORT} tokens, {W_GEN} greedy tokens each: live CUDA "
+              f"bytes at the phase's start {live:,}; launches {la}, stats "
+              f"{json.dumps(stats)}")
+        print(f"[{key}] prefill {stats['prefill_tok_s']:,.1f} tok/s, decode "
+              f"{stats['decode_tok_s']:,.1f} tok/s "
+              f"({stats['decode_ms_per_step']:.3f} ms a step at up to "
+              f"{W_SLOTS} rows, up to position "
+              f"{stats['last_decode_position']}), setup "
+              f"{stats['setup_s']:.1f} s, peak {stats['peak_mem_gb']:.2f} GB"
+              + (f", prefill drop share {stats['prefill_drop_share']:.4f}"
+                 if "prefill_drop_share" in stats else "")
+              + f"; profiled decode step {dp['wall_ms']:.3f} ms, device "
+              f"busy {dp['busy_ms']:.3f} ms, idle share "
+              f"{dp['idle_share']:.4f} | {card_line()}")
+        print(f"[{key}] phase {tag} took {time.perf_counter() - tw:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
     # 13. timings -----------------------------------------------------------
@@ -4362,26 +4679,35 @@ def main() -> int:
                                                      spec.act_dim)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flash_t = {}
+    # (the shape, its calls) of every timed shape, phase 8's first
+    flash_t = []
     for fb, fs, fh, fkh, fhd, fc in FLASH_TIMED:
         fq, fk, fv = flash_inputs(fb, fs, fh, fkh, fhd, gen, dev, bf)
         ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
-        flash_t[(fb, fs, fhd)] = (
+        flash_t.append(({"B": fb, "S": fs, "hd": fhd, "causal": fc}, (
             lambda fq=fq, fk=fk, fv=fv, fc=fc: ops.flash_attention(
                 fq, fk, fv, causal=fc),
             lambda fq=fq, fk=fk, fv=fv, fc=fc: ref.attention_ref(
                 fq, fk, fv, causal=fc),
             lambda ft=ft, fc=fc: sdpa(*ft, is_causal=fc, enable_gqa=True),
             cost.flash_attention(fb, fs, fh, fkh, fhd, 2, fc),
-            cost.PEAK_BF16)
-    paged_t = {}
+            cost.PEAK_BF16)))
+    paged_t = []
     for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
-        paged_t[(pb, pa[0].shape[1], pa[0].shape[2])] = (
+        paged_t.append(({"B": pb, "H": pa[0].shape[1],
+                         "hd": pa[0].shape[2]}, (
             lambda pa=pa: ops.paged_attention(*pa),
             lambda pa=pa: ref.paged_attention_ref(*pa), None,
-            cost.paged_attention(*pa), cost.PEAK_BF16)
-    timings["paged_attention"] = paged_t[(8, FH, FHD)]
-    timings["flash_attention"] = flash_t[(3, 128, FHD)]
+            cost.paged_attention(*pa), cost.PEAK_BF16)))
+    wf, wp, lib_ulps = windowed_timings(gen, dev)
+    for at, lib, u in lib_ulps:
+        print(f"[time] flash_attention library at {json.dumps(at)}: {lib}"
+              + (f", {u:.3g} bf16 ulps from the plain version (the ulps "
+                 "of each element, largest)" if u is not None else ""))
+    flash_t += wf
+    paged_t += wp
+    timings["paged_attention"] = paged_t[0][1]
+    timings["flash_attention"] = flash_t[0][1]
     (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
     timings["mlstm_chunkwise"] = (
         lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
@@ -4410,27 +4736,23 @@ def main() -> int:
             # every timed shape, each in its own turns; the row's own
             # numbers are phase 8's dispatch, the first
             row["shapes"] = []
-            for (fb, fs, fhd), (k_, p_, l_, (nb, no), *pk) in \
-                    flash_t.items():
-                row["shapes"].append({"B": fb, "S": fs, "hd": fhd,
-                                      "causal": fhd != HUBERT_FLASH[-1],
-                                      **timed(k_, p_, l_, nb, no, *pk),
+            for at, (k_, p_, l_, (nb, no), *pk) in flash_t:
+                row["shapes"].append({**at, **timed(k_, p_, l_, nb, no, *pk),
                                       "device_ms": device_ms(k_),
-                                      "library_device_ms": device_ms(l_)})
+                                      "library_device_ms": device_ms(l_)
+                                      if l_ else None})
             row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in ("B", "S", "hd", "causal")})
+                        if k not in flash_t[0][0]})
         elif name == "paged_attention":
             # phase 8's decode step (the row's own numbers) and phase 17's
             # at hd 112, each in its own turns
             row["shapes"] = []
-            for (pb, ph, phd), (k_, p_, l_, (nb, no), *pk) in \
-                    paged_t.items():
-                row["shapes"].append({"B": pb, "H": ph, "hd": phd,
-                                      **timed(k_, p_, l_, nb, no, *pk),
+            for at, (k_, p_, l_, (nb, no), *pk) in paged_t:
+                row["shapes"].append({**at, **timed(k_, p_, l_, nb, no, *pk),
                                       "device_ms": device_ms(k_),
                                       "library_device_ms": None})
             row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in ("B", "H", "hd")})
+                        if k not in paged_t[0][0]})
         else:
             row.update(timed(kern, plain, lib, nbytes, nops, *peak))
             by_kernel = device_times(kern)
@@ -4445,7 +4767,9 @@ def main() -> int:
         for sh in row.get("shapes", [{**row, **extra}]):
             at = (f" B={sh['B']} {'S' if 'S' in sh else 'H'}="
                   f"{sh.get('S', sh.get('H'))} hd={sh['hd']}" if "B" in sh
-                  else "")
+                  else "") + (f" {sh['arch']} window={sh['window']} "
+                              f"softcap={sh['softcap']}" if "arch" in sh
+                              else "")
             dv = (f", device time (profiler) kernel {sh['device_ms']} ms, "
                   f"library {sh['library_device_ms']} ms")
             print(f"[time] {name}{at}: kernel {sh['ms']:.4f} ms, plain "

@@ -65,13 +65,15 @@ def pack_channels(T, N, obs_dim, act_dim):
     return 2 * (4 * (T * N * (obs_dim + act_dim + 2) + N) + 4), 0
 
 
-def paged_attention(q, k_pages, v_pages, slot_pos, table, positions):
+def paged_attention(q, k_pages, v_pages, slot_pos, table, positions,
+                    window=None):
     """Bytes and operations of one paged decode call on these inputs:
     q and out, the table and positions, and each row's mapped pages that
-    hold a visible key (k, v and slot positions of the page, read once);
-    ~4 * H * hd flops per visible key.  Where the data cannot be read (a
-    traced step's fake tensors), every row attends its whole table: the
-    most the call could need."""
+    can hold a visible key, those before a ``window`` left out (k, v and
+    slot positions of the page, read once); ~4 * H * hd flops per visible
+    key.  Where the data cannot be read (a traced step's fake tensors),
+    every row attends its whole table, or the most pages a ``window`` of
+    keys can span: the most the call could need."""
     from torch._subclasses.fake_tensor import FakeTensor
     B, H, hd = q.shape
     N, P, KH, _ = k_pages.shape
@@ -79,9 +81,14 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions):
     es = q.element_size()
     bytes_ = 2 * B * H * hd * es + table.numel() * 4 + B * 4
     if isinstance(q, FakeTensor) or isinstance(table, FakeTensor):
-        keys = B * M * P
-        return bytes_ + B * M * (2 * P * KH * hd * es + P * 4), \
-            keys * 4 * H * hd
+        pages, keys = M, M * P
+        if window is not None:
+            # W consecutive positions span at most ceil((W - 1) / P) + 1
+            # pages
+            pages = min(M, -(-(int(window) - 1) // P) + 1)
+            keys = min(keys, int(window))
+        return bytes_ + B * pages * (2 * P * KH * hd * es + P * 4), \
+            B * keys * 4 * H * hd
     # measurement code: it reads the data to count what the call needs
     # repro: allow(host-sync-in-hot-path)
     sp, table, pos = slot_pos.cpu(), table.cpu(), positions.cpu()
@@ -90,20 +97,27 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions):
         qp = int(pos[b])
         if qp < 0:
             continue
-        for v in range(qp // P + 1):
+        lo = 0 if window is None else max(qp - int(window) + 1, 0)
+        for v in range(lo // P, qp // P + 1):
             pid = int(table[b, v])
             if pid >= 0:
                 bytes_ += 2 * P * KH * hd * es + P * 4
                 sl = sp[pid]
-                keys += int(((sl >= 0) & (sl <= qp)).sum())
+                keys += int(((sl >= lo) & (sl <= qp)).sum())
     return bytes_, keys * 4 * H * hd
 
 
-def flash_attention(B, S, H, KH, hd, es, causal=True):
-    # q, k, v read once, out written once; QK^T and PV over the causal
-    # (or, bidirectional, all) pairs, 4 * hd flops each
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
-    return es * (2 * B * S * H * hd + 2 * B * S * KH * hd), 4 * hd * pairs
+def flash_attention(B, S, H, KH, hd, es, causal=True, window=None):
+    # q, k, v read once, out written once; QK^T and PV over the visible
+    # pairs, 4 * hd flops each: query i sees keys j <= i (causal) and
+    # j > i - window
+    W = S if window is None else min(int(window), S)
+    if causal:
+        per = W * (W + 1) // 2 + (S - W) * W
+    else:
+        per = S * S - (S - W) * (S - W + 1) // 2
+    return (es * (2 * B * S * H * hd + 2 * B * S * KH * hd),
+            4 * hd * B * H * per)
 
 
 def mlstm_chunkwise(B, H, S, dk, L, dv=None):

@@ -206,7 +206,7 @@ def paged_attention(q, k_pages, v_pages, slot_pos, table, positions, *,
     a Python int or None.  Returns (B, H, hd) in q's dtype."""
     if _traced(q):
         _record("paged_attention", *cost.paged_attention(
-            q, k_pages, v_pages, slot_pos, table, positions))
+            q, k_pages, v_pages, slot_pos, table, positions, window))
         # the split partials (B * H * splits * (hd + 2) floats) are left
         # out: the split count needs the card's SM count
         return torch.empty_like(q)
@@ -269,7 +269,7 @@ class _FlashAttention(torch.autograd.Function):
         if _traced(q):
             B, S, H, hd = q.shape
             _record("flash_attention", *cost.flash_attention(
-                B, S, H, k.shape[2], hd, q.element_size(), causal))
+                B, S, H, k.shape[2], hd, q.element_size(), causal, window))
             out = torch.empty_like(q)
         else:
             from repro_torch.kernels import flash_attention as fa

@@ -9,7 +9,8 @@ in total, each GMI on its own CUDA stream, ``--dispatch``): it sets the
 GMIs up once, runs the warm-up iterations on that state and profiles one
 further iteration.
 ``--workload serve`` builds a paged ``ServeEngine`` over
-``--arch`` at full width (random weights), submits ``--batch`` prompts of
+``--arch`` at full width (random weights drawn straight into the compute
+type), submits ``--batch`` prompts of
 ``--prompt-len`` tokens, and profiles the first engine step (the batched
 whole-prompt prefill through the flash or mLSTM kernel, then one decode
 step) and, after two warm-up steps, one decode-only step.  Each report
@@ -71,7 +72,7 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def _profile(fn):
+def profile_once(fn):
     """Run ``fn`` once under the profiler; returns (wall us, profile)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -108,7 +109,7 @@ def _mark_slstm():
     _mark(ssm, "slstm_apply", SLSTM_RANGE)
 
 
-def _report(title, wall_us, prof):
+def report(title, wall_us, prof):
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
     # a range also leaves a device-side annotation, which is no kernel
@@ -151,7 +152,7 @@ def _report(title, wall_us, prof):
     gae = [(a, b) for a, b, g in spans if g]
     shared = sum(any(a < e and s < b and (s, e) != (a, b)
                      for s, e, _ in spans) for a, b in gae)
-    conc = sum(b - a for a, b, _ in spans) / busy_us
+    conc = sum(b - a for a, b, _ in spans) / busy_us if busy_us else 0.0
     print(f"{title}: concurrency {conc:.3f} (kernel time / busy time); GAE "
           f"launches overlapping another kernel: {shared} of {len(gae)}")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -159,6 +160,9 @@ def _report(title, wall_us, prof):
     print("top kernels:")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3:10.3f} ms  {n[:100]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / wall_us, "kernels": len(kernels),
+            "ms_by_group": {g: us / 1e3 for g, us in by_group.items()}}
 
 
 def _serve(args):
@@ -171,7 +175,7 @@ def _serve(args):
     cfg = get_config(args.arch)
     if "slstm" in (cfg.block_pattern or ()):
         _mark_slstm()
-    eng = ServeEngine(cfg, T.init_model(args.seed, cfg, "cuda"),
+    eng = ServeEngine(cfg, T.init_model(args.seed, cfg, "cuda", cast=True),
                       max_slots=args.batch,
                       max_seq=args.prompt_len + args.gen + 8,
                       device="cuda")
@@ -182,12 +186,12 @@ def _serve(args):
     for i in range(args.batch):
         eng.submit(Request(tokens=toks[i], max_new_tokens=args.gen))
     title = f"{args.arch} full width, {args.batch} x {args.prompt_len}"
-    _report(f"{title}: admission step (prefill + 1 decode step)",
-            *_profile(eng.step))
+    report(f"{title}: admission step (prefill + 1 decode step)",
+           *profile_once(eng.step))
     for _ in range(2):
         eng.step()
-    _report(f"{title}: one decode step at {eng.active_count} rows",
-            *_profile(eng.step))
+    report(f"{title}: one decode step at {eng.active_count} rows",
+           *profile_once(eng.step))
 
 
 def _lm(args):
@@ -220,9 +224,9 @@ def _lm(args):
 
     def one():
         state[:] = step(*state, batches[2])[:2]
-    _report(f"{args.arch} full width, {cfg.dtype} compute, f32 masters, "
-            f"Adam, {args.batch} x {args.seq}: training step",
-            *_profile(one))
+    report(f"{args.arch} full width, {cfg.dtype} compute, f32 masters, "
+           f"Adam, {args.batch} x {args.seq}: training step",
+           *profile_once(one))
 
 
 def _gmis(args):
@@ -249,9 +253,9 @@ def _gmis(args):
         train_gmis(grid, env, step, cfg.num_steps, args.num_env, iters,
                    dispatch=args.dispatch, states=states)
     run(args.warmup)
-    _report(f"{args.env} {k} GMIs x {args.num_env // k} envs T="
-            f"{args.rollout} dispatch={args.dispatch}: iteration",
-            *_profile(lambda: run(1)))
+    report(f"{args.env} {k} GMIs x {args.num_env // k} envs T="
+           f"{args.rollout} dispatch={args.dispatch}: iteration",
+           *profile_once(lambda: run(1)))
 
 
 def main(argv=None):
@@ -293,8 +297,8 @@ def main(argv=None):
 
     def one():
         state[:] = step(*state)[:5]
-    _report(f"{args.env} N={args.num_env} T={args.rollout}: iteration",
-            *_profile(one))
+    report(f"{args.env} N={args.num_env} T={args.rollout}: iteration",
+           *profile_once(one))
 
 
 if __name__ == "__main__":

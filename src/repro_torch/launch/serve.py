@@ -4,13 +4,16 @@ kernel (attention stacks) or the mLSTM kernel (xlstm), and
 continuous-batching decode through the paged gather-decode kernel
 (attention stacks; xlstm's recurrent decode is plain ops).  The reference
 serves the reduced configs because its host is a CPU; ``--full`` takes
-the published widths, which fit one H100.
+the published widths, which fit one H100 (gemma2-27b's only in bf16:
+the weights are drawn straight into ``cfg.dtype``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda \\
       --batch 8 --prompt-len 512 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --full --device cuda --batch 8 --prompt-len 512 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
+      --full --device cuda --batch 2 --prompt-len 4608 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
@@ -71,7 +74,7 @@ def main(argv=None):
     cfg = (get_config if args.full else get_reduced)(args.arch)
     if cfg.is_encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
-    params = T.init_model(args.seed, cfg, device)
+    params = T.init_model(args.seed, cfg, device, cast=True)
     shape = InputShape("serve", args.prompt_len, args.batch, "prefill")
     batch = make_batch(cfg, shape, seed=args.seed)
     requests = []

@@ -323,11 +323,12 @@ def slstm_init_state(batch: int, num_heads: int, dh: int,
                         for _ in range(4)])
 
 
-def _slstm_cell(params, x_pre, state: SLSTMState, num_heads: int):
-    """x_pre: (B, 4*D) input preactivations for one timestep."""
+def _slstm_cell(r, x_pre, state: SLSTMState, num_heads: int):
+    """x_pre: (B, 4*D) input preactivations for one timestep; ``r`` the
+    recurrent weight (H, dh, 4*dh) in f32."""
     B = x_pre.shape[0]
     dh = x_pre.shape[-1] // 4 // num_heads
-    rec = torch.einsum("bhd,hde->bhe", state.h, params["r"].float())
+    rec = torch.einsum("bhd,hde->bhe", state.h, r)
     pre = x_pre.float().reshape(B, num_heads, 4 * dh) + rec
     i_p, f_p, z_p, o_p = torch.split(pre, dh, dim=-1)
     log_f = F.logsigmoid(f_p)
@@ -351,7 +352,9 @@ def slstm_apply(params, x, *, num_heads: int, state: SLSTMState = None,
     rank's heads, its hidden states gathered once after the time loop, or
     on all of them on every rank, the preactivations gathered once before
     it; no collective runs inside the loop.  Gradients are each rank's
-    share but the input norm's, as in :func:`_mlstm`."""
+    share but the input norm's, as in :func:`_mlstm`.  ``r`` is read in
+    f32, cast once before the loop: a cast inside it would be a new copy
+    every step, each saved for the backward."""
     from repro_torch.dist import spmd
     B, S, D = x.shape
     H, dh = num_heads, D // num_heads
@@ -363,9 +366,10 @@ def slstm_apply(params, x, *, num_heads: int, state: SLSTMState = None,
         x_pre = spmd.region_gather(x_pre, region, 2)
     if state is None:
         state = slstm_init_state(B, Hl, dh, x.device)
+    r = params["r"].float()
     hs = []
     for t in range(S):
-        state = _slstm_cell(params, x_pre[:, t], state, Hl)
+        state = _slstm_cell(r, x_pre[:, t], state, Hl)
         hs.append(state.h)
     h = torch.stack(hs, dim=1).reshape(B, S, Hl * dh).to(dt)
     if Hl < H:

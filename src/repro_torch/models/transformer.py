@@ -143,7 +143,7 @@ def _cut(tree, prefix: tuple, where):
     return tree[where(prefix)].clone()
 
 
-def _init_stacked(make, n: int, prefix: tuple = (), where=None):
+def _init_stacked(make, n: int, prefix: tuple = (), where=None, dt=None):
     """``n`` draws of ``make()`` stacked leaf by leaf.  Each draw is copied
     into the stack as it is made, so the n draws and their stack are never
     all held at once (stablelm-12b's 40 f32 layers are 45 GiB).  With
@@ -157,8 +157,9 @@ def _init_stacked(make, n: int, prefix: tuple = (), where=None):
                     (slice(0, n),) + tuple(slice(None) for _ in t.shape)
                     for k, t in _keys(one)]
             out = [t.new_empty((c[0].stop - c[0].start,)
-                               + tuple(t[c[1:]].shape))
-                   for (_, t), c in zip(_keys(one), cuts)]
+                               + tuple(t[c[1:]].shape),
+                               dtype=_leaf_dtype(k[-1], t, dt))
+                   for (k, t), c in zip(_keys(one), cuts)]
         for dst, (_, src), c in zip(out, _keys(one), cuts):
             if c[0].start <= i < c[0].stop:
                 dst[i - c[0].start].copy_(src[c[1:]])
@@ -167,19 +168,24 @@ def _init_stacked(make, n: int, prefix: tuple = (), where=None):
 
 
 def init_model(seed: int, cfg: ModelConfig, device="cuda",
-               where=None) -> Dict[str, Any]:
+               where=None, cast: bool = False) -> Dict[str, Any]:
     """Random f32 params from ``seed`` with the reference's tree layout, on
     the card unless ``device`` says otherwise.  The draws differ from the
     reference's (``jax.random`` is not reproducible here): parity tests
     carry the reference's params across with ``interop.model_params``.
     ``where`` (a leaf's key path -> a tuple of slices) keeps only that part
     of each leaf, drawn in the same order, one layer at a time
-    (``dist/partition.py::init_local``)."""
+    (``dist/partition.py::init_local``).  ``cast`` puts each leaf in the
+    type :func:`cast_params` gives it as soon as it is drawn, so no more
+    than one layer's draws, or one top-level leaf, is ever held in f32
+    (gemma2-27b is 109 GB in f32, 54 GB in bf16); the params are bit for
+    bit ``cast_params`` of the f32 ones."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
+    dt = torch_dtype(cfg) if cast else None
 
     def top(key, tree):
-        return _cut(tree, (key,), where)
+        return _cast(_cut(tree, (key,), where), dt)
 
     params: Dict[str, Any] = {
         "final_norm": top("final_norm", init_rmsnorm(cfg.d_model, device))}
@@ -201,7 +207,7 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda",
         params["super"] = {
             f"{kind}_{i}": _init_stacked(
                 lambda: _init_block(gen, kind, cfg), cfg.num_super,
-                ("super", f"{kind}_{i}"), where)
+                ("super", f"{kind}_{i}"), where, dt)
             for i, kind in enumerate(cfg.block_pattern)
             if kind != "attn_shared"}
         if "attn_shared" in cfg.block_pattern:
@@ -209,7 +215,8 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda",
                                         _init_attn_layer(gen, cfg))
     else:
         params["layers"] = _init_stacked(lambda: _init_attn_layer(gen, cfg),
-                                         cfg.num_layers, ("layers",), where)
+                                         cfg.num_layers, ("layers",), where,
+                                         dt)
     return params
 
 
@@ -239,15 +246,21 @@ def cast_params(params, cfg: ModelConfig):
     activation type inside every call; that cast is exact and
     deterministic, so doing it once gives the same numbers without
     re-reading the f32 weights each step."""
-    dt = torch_dtype(cfg)
+    return _cast(params, torch_dtype(cfg))
 
-    def go(tree, key=None):
-        if isinstance(tree, dict):
-            return {k: go(v, k) for k, v in tree.items()}
-        if key in _F32_LEAVES or not tree.is_floating_point():
-            return tree
-        return tree.to(dt)
-    return go(params)
+
+def _leaf_dtype(key, t, dt):
+    """The type of leaf ``t`` under dict key ``key`` cast to ``dt`` (None:
+    its own): ``_F32_LEAVES`` and integer leaves keep theirs."""
+    if dt is None or key in _F32_LEAVES or not t.is_floating_point():
+        return t.dtype
+    return dt
+
+
+def _cast(tree, dt, key=None):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dt, k) for k, v in tree.items()}
+    return tree.to(_leaf_dtype(key, tree, dt))
 
 
 # ======================================================================

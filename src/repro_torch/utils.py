@@ -110,12 +110,13 @@ def lecun_init(gen: torch.Generator, shape, fan_in=None):
 BF16_ATOL = 2.0 ** -14
 
 
-def bf16_ulps(got, want) -> float:
-    """The largest |got - want| over one bf16 ulp of ``want``'s own element
-    (2^(e-7) for |want| in [2^e, 2^(e+1))) plus ``BF16_ATOL``: at most 1
-    passes the bf16 check."""
+def bf16_ulps(got, want, median=False) -> float:
+    """The largest (``median``: the median) |got - want| over one bf16 ulp
+    of ``want``'s own element (2^(e-7) for |want| in [2^e, 2^(e+1))) plus
+    ``BF16_ATOL``: a largest of at most 1 passes the bf16 check."""
     w = want.float()
     _, e = torch.frexp(w)                 # |w| = m 2^e, m in [0.5, 1)
     ulp = torch.where(w != 0, torch.exp2((e - 8).float()),
                       torch.zeros_like(w))
-    return float(((got.float() - w).abs() / (ulp + BF16_ATOL)).max())
+    r = (got.float() - w).abs() / (ulp + BF16_ATOL)
+    return float(r.median() if median else r.max())
