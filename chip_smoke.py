@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch port's fourteen paths: synchronous PPO,
 asynchronous A3C over the MCC experience ring, the paged serving engine at
 internlm2-1.8b's, xlstm-1.3b's and stablelm-12b's full width, multi-GMI
-synchronous PPO (several GMIs on one card, one CUDA stream each), async
+synchronous PPO (several GMIs on one card, each in a green context of its
+share of the SMs), async
 A3C under the fleet supervisor (faults, checkpoints) and the online GMI
 controller, disaggregated prefill/decode serving over GMIs with cache
 migration, under the same supervisor and controller, PPO over the
@@ -153,10 +154,10 @@ each asserting, in order:
    with every GMI on its own CUDA stream, with the launch counters set
    to 0 just before and read just after (env step 4 x 16 x 3, trunk
    4 x 17 x 3, GAE 4 x 3, nothing else), and again with every GMI on the
-   default stream in turn: params within 1e-6, the same launches; print
-   env steps/s for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs on streams and
-   4 x 4096 in turn (same total envs and iterations; printed, not
-   asserted); run Algorithm 2 (``explore`` over
+   default stream in turn (the whole card): params within 1e-6, the same
+   launches; print env steps/s for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs
+   on their shares of the SMs and 4 x 4096 in turn (same total envs and
+   iterations; printed, not asserted); run Algorithm 2 (``explore`` over
    the port's PPO profiler, GMIperGPU 4, 2, 1, num_env 4096 and 16384)
    and print its trace and best config; launch the cooperative GAE kernel
    while another stream runs a GEMM chain (it must succeed and agree with
@@ -187,7 +188,10 @@ each asserting, in order:
    after, exact (the env step a collected step on the direct branch, the
    ring pack a push on the push branch, the n-step scan a trained or
    discarded batch);
-13. time each kernel, its plain version and, where one PyTorch call
+13. (run right after 2, before any path, green context or compiled
+   library, so that the profiles see the kernels alone; every path's
+   launches fill the kernels line in at the end) time each kernel, its
+   plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (flash at
    phase 8's B = 3 x 128 dispatch, at the launcher's B = 8 x 512, at
    phase 11's stablelm-12b B = 2 x 512, hd 160, and at phase 17's
@@ -201,18 +205,20 @@ each asserting, in order:
    decode at phase 8's step, at phase 17's, B = 4, hd 112, and at phases
    22 and 23's, in its ``shapes`` list), and the device time of every kernel (and of the library call,
    where there is one) under ``torch.profiler``, since small calls are
-   host-bound, by launched kernel where a call launches more than one (a
-   profile that sees no kernel is taken again, with a warning line); the
+   host-bound, by launched kernel where a call launches more than one
+   (each kernel's mean over the events the profile saw, times its events
+   a call; a profile that sees no kernel, or loses an event, is taken
+   again, with a warning line), each at least its bound (asserted); the
    trunk's and the mLSTM kernel's bounds are their three TF32 passes at
    the TF32 tensor-core peak, the env step's its projection's three TF32
    passes plus the rest on the fp32 pipe (printed beside the fp32-pipe
    figure); each row also carries the host time of one call on its own
    (``host_ms``: CPU wall time, no synchronise); print one
    ``{"kernels": [...]}`` line;
-14. (run before 13's timings, so that its launches join the kernels line)
+14. (every engine a GMI of one slot of 15, 8 SMs)
    drive disaggregated serving over GMIs (``make_disagg_front``: decode
    GMIs behind a ``RequestRouter``, prefill GMIs, the ``CacheChannel``,
-   every GMI on its own CUDA stream from a ``GMIManager``): (a) a small f32
+   every GMI on its own slot of the SMs from a ``GMIManager``): (a) a small f32
    front (reduced internlm2-1.8b, 2 decode GMIs x 4 slots, 1 prefill GMI,
    the planner pinned so that 40-token prompts migrate and 12-token ones
    stay local) on the card against the CPU: routes, payload bytes, head
@@ -237,16 +243,18 @@ each asserting, in order:
    online_controller=True)`` over an A3C fleet with the small front,
    traffic outrunning its slots: at least one serving decision applied,
    every request completed, trained == predicted;
-15. (also before 13) multi-agent PPO: (a) one fused iteration over the
+15. multi-agent PPO: (a) one fused iteration over the
    4-agent Ant (8 worlds, T = 4, one world at its episode cap) on the card
    against the CPU with the same noise and permutations: bookkeeping and
-   the done fraction exact, params within 1e-5; (b) 16,384 agents (4,096
+   the done fraction exact, Adam's gradients within 1e-4 of each leaf's
+   largest, params within 1e-5 plus Adam's slack (C21); (b) 16,384
+   agents (4,096
    worlds of 32 joints), T = 16, ``use_fused_kernels=True``, 3 iterations
    with the launch counters set to 0 just before and read just after:
    the trunk 17 times and GAE once an iteration, no env-step kernel (the
    family runs the plain step); env steps/s printed beside 16,384
    single-agent Ant envs on the plain step and on the env megakernel;
-16. (also before 13) ``moe_apply`` in f32 on the card against the CPU with
+16. ``moe_apply`` in f32 on the card against the CPU with
    assignments dropped by capacity (slots exact, out 1e-5); then
    granite-moe-1b-a400m at full width in bf16 (24 layers, d 1024, 16 q
    on 8 kv heads, hd 64, 32 experts top-8, random weights from seed 0),
@@ -258,7 +266,7 @@ each asserting, in order:
    the share of expert assignments dropped by capacity in the two
    prefill dispatches and the ``oracle_generate`` match count of two
    requests (printed, not asserted);
-17. (also before 13) a small f32 hybrid engine (reduced zamba2, chunked
+17. a small f32 hybrid engine (reduced zamba2, chunked
    at 16 tokens with a 48-token prompt, and whole-prompt) on the card
    against the CPU: greedy tokens and page tables identical, Mamba2
    states within 1e-4; then zamba2-7b at full width in bf16 (d 3584, 32
@@ -270,7 +278,7 @@ each asserting, in order:
    hd 112, one paged-decode launch per application per decode step; it
    prints tok/s, peak device memory and the ``oracle_generate`` match
    count of two requests;
-18. (also before 13) LM training: (a) reduced internlm2-1.8b, xlstm-1.3b,
+18. LM training: (a) reduced internlm2-1.8b, xlstm-1.3b,
    hubert-xlarge and pixtral-12b in f32, ``loss_fn`` and its gradient on
    the card against the CPU from the same params and batch (loss 1e-5,
    every gradient leaf within 1e-4 of the CPU leaf's largest, so a leaf
@@ -284,7 +292,7 @@ each asserting, in order:
    per layer per step and nothing else; each prints training tokens/s,
    step ms, the model-FLOP share of the bf16 peak (6 x params x tokens)
    and peak device memory;
-19. (also before 13) a small f32 pixtral engine (8 patches ahead of the
+19. a small f32 pixtral engine (8 patches ahead of the
    text, and a text-only request) on the card against the CPU: greedy
    tokens and page tables identical; then pixtral-12b at full width in
    bf16 (d 5120, 32 q on 8 kv heads, hd 128, depth cut to ``PLAYERS`` of
@@ -293,7 +301,7 @@ each asserting, in order:
    just after: one flash launch per layer per (one-request) whole-prompt
    dispatch, one paged-decode launch per layer per decode step; it
    prints prefill and decode tok/s and peak device memory;
-20. (also before 13) the dry run against the card, at models earlier
+20. the dry run against the card, at models earlier
    phases hold: (a) the tracer of ``launch/dryrun.py``
    (``launch/hlo_analysis.trace``, fake CUDA tensors) over phase 18
    (b)'s internlm2-1.8b train step, f32 masters and bf16 compute: its
@@ -305,7 +313,7 @@ each asserting, in order:
    paged decode step, each measured from a reset, within ``MEM_TOL``;
    (c) ``python -m repro_torch.analysis --strict`` in a subprocess
    with ``jax`` blocked, exit code 0;
-21. (also before 13) sharded LM steps: (a) rank 0 of the (16, 16) mesh
+21. sharded LM steps: (a) rank 0 of the (16, 16) mesh
    under the ``fake`` process group (the other 255 ranks exist only as
    the group's size, and collectives move nothing) at internlm2-1.8b's
    and qwen2-72b's train_4k, full width and depth (16 x 4096 tokens a
@@ -327,7 +335,7 @@ each asserting, in order:
    heads; (b) a real NCCL world of ``torch.cuda.device_count()`` ranks
    (one card: a (1, 1) mesh) running reduced internlm2-1.8b's sharded
    HAR step, loss within 1e-5 of the unsharded step's on the card;
-22. (also before 13, after every earlier phase's engine and params are
+22. (after every earlier phase's engine and params are
    freed; the live CUDA bytes at its start printed) gemma2-27b: (a) a
    small f32 engine (reduced: window 16 on the even layers, odd layers
    global, softcaps 50 and 30) with whole-prompt prefill, six prompts of
@@ -347,7 +355,7 @@ each asserting, in order:
    decode-only step of the same prompts at 4 rows under
    ``torch.profiler`` (``launch/profile.report``: wall, device busy and
    idle share; phase 11 prints the same);
-23. (also before 13) mixtral-8x7b the same way: (a) reduced (window 16
+23. mixtral-8x7b the same way: (a) reduced (window 16
    on every layer, 4 experts top-2) card vs CPU; (c) full width in bf16
    (d 4096, 32 q on 8 kv heads, hd 128, window 4096 on every layer, 8
    experts of d_ff 14336 top-2), its depth cut to ``W_MX_LAYERS`` of 32
@@ -355,6 +363,20 @@ each asserting, in order:
    a dispatch and a decode step; it also prints the share of expert
    assignments dropped by capacity in the two dispatches, in all and by
    layer.
+
+24. (run before 12 and 14, which run on carved GMIs) a GMI's share of
+   the SMs: (a) the partition granularity (8 SMs on sm_90, asserted),
+   then a probe kernel (``csrc/smid_probe.cu``) that writes ``%smid``
+   for each of a few thousand blocks, on the whole card (every SM seen)
+   and in every GMI of managers of 4 and 15 slots (each GMI's SMs at most
+   its slot's and disjoint from the others'; the ids printed); a GMI of
+   16 slots of 8 SMs raises (the card's clusters allow 15); (b) one bf16
+   8192^3 ``torch.matmul`` and one flash call (B = 8, S = 512, hd 128)
+   timed in a GMI of 32 SMs and on the whole card, each ratio at least
+   half of 132 / 32, the flash output bit for bit the whole card's; (c)
+   GAE in a GMI of 8 SMs at N = 4096, 16384 and 300,000 within 1e-4 of
+   its plain version, its grid (scratch) sized by the context's SMs.
+   Phases 12.3, 12.4 and 14 run on such GMIs.
 
 Float32 matmuls run without TF32 (``allow_tf32 = False``) so the plain
 versions are full fp32, as the kernels are.  The last line is the
@@ -407,8 +429,9 @@ TENSOR_CORE = [("env_megakernel", "env_mega_step_kernel"),
                ("mlstm_chunkwise", "mlstm_out_kernel")]
 A3C_ROUNDS = 3
 # the multi-GMI phase: layouts printed, iterations of the streams-vs-
-# sequential gate, and the steps/s sweep (GMIs per GPU, dispatch mode), all
-# at N_MAIN envs in total
+# sequential gate, and the steps/s sweep (GMIs per GPU, dispatch mode;
+# "shared": streams over the whole card, ``shared_streams``), all at
+# N_MAIN envs in total
 GMI_LAYOUTS = [(1, 4), (2, 2)]
 GMI_ITERS = 3
 GMI_SWEEP = [(1, "streams"), (2, "streams"), (4, "streams"),
@@ -417,6 +440,17 @@ GMI_SWEEP = [(1, "streams"), (2, "streams"), (4, "streams"),
 # the trunk and GAE at these too
 GMI_N = (N_MAIN // 4, N_MAIN // 2)
 GMI_SWEEP_ITERS = 4
+# phase 24: the slot counts whose GMIs the SM-id probe holds disjoint (15
+# slots of 8 SMs: the most an H100's GPCs hold; 16 must raise), its
+# blocks and each block's spin (clock cycles), the GEMM and flash shapes
+# timed in a GMI of 4 slots against the whole card, and the N of GAE in a
+# GMI of 15 slots
+CARVE_SLOTS = (4, 15)
+CARVE_REFUSED = 16
+PROBE_BLOCKS, PROBE_SPIN = 4096, 20000
+CARVE_GEMM = 8192
+CARVE_FLASH = (8, 512, 16, 8, 128)
+CARVE_GAE_N = (N_MAIN // 4, N_MAIN, N_GAE_STRIDE)
 # phase 12b: the supervised fleet's fault schedule, (kind, round, mode),
 # one event of each runner-side kind; the failures it logs, in order (a
 # checkpoint's step is the count of rounds done, so the round-4 tear hits
@@ -449,13 +483,14 @@ SLAYERS = 8              # of stablelm-12b's 40, to keep the phase short
 SDECODE_POS = [543, 543, 159, 159]
 SFLASH_SHAPES = [(2, 512), (2, 128)]
 # phase 14: GMIs a manager holds room for (decode, prefill and any a
-# controller decision adds); (b)'s decode GMIs, prefill GMIs and slots a
+# controller decision adds; one slot of 8 SMs each: 16 slots of 8 do not
+# split on an H100, phase 24); (b)'s decode GMIs, prefill GMIs and slots a
 # decode GMI; its traffic (long prompts, the head two of them share, short
 # prompts, greedy tokens each) and the pinned planner's threshold in
 # prompt tokens (the long prompts migrate, the short stay local); (a)'s
 # threshold, and its supervised fleet's faults (kind, round, target) and
 # rounds; (c)'s rounds
-D_GMIS = 16
+D_GMIS = 15
 D_DECODE, D_PREFILL, D_SLOTS = 2, 1, 8
 D_LONG, D_HEAD, D_SHORT, D_GEN = 896, 512, 64, 64
 D_THRESHOLD = 300
@@ -567,13 +602,18 @@ def live_cuda_bytes() -> int:
     a collection.  What a run still holds is read as the change in this,
     not in ``torch.cuda.memory_allocated``: that also counts the slack of
     cached blocks the allocator chose not to split, which depends on what
-    earlier phases left in its cache."""
+    earlier phases left in its cache.  The fake and functional tensors
+    that ``torch.compile`` keeps from its traces hold no storage and are
+    skipped."""
     import gc
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch._subclasses.functional_tensor import FunctionalTensor
     gc.collect()
     torch.cuda.synchronize()
     seen = {}
     for o in gc.get_objects():
-        if issubclass(type(o), torch.Tensor) and o.is_cuda:
+        if issubclass(type(o), torch.Tensor) and o.is_cuda and \
+                not isinstance(o, (FakeTensor, FunctionalTensor)):
             st = o.untyped_storage()
             seen[st.data_ptr()] = st.nbytes()
     return sum(seen.values())
@@ -615,42 +655,50 @@ def sass_report(build_dir, logs):
     return res
 
 
-def device_times(fn, reps=20, warmup=3):
-    """Mean device time of one call of ``fn`` by launched kernel: each
-    kernel's durations under ``torch.profiler``, summed over ``reps``
-    calls and divided by ``reps``.  A profile that saw no kernel is taken
-    again, at most twice, with a warning line each time (the cause of such
-    empty profiles is not known); {} if all three were empty."""
+def device_times(fn, reps=20, warmup=3, exact=False):
+    """Mean device time of one call of ``fn`` by launched kernel under
+    ``torch.profiler``, over ``reps`` calls: each kernel's durations
+    summed and divided by ``reps``.  A profile that saw no kernel is
+    taken again, at most twice, with a warning line each time.  With
+    ``exact`` (``fn`` launches the same kernels on every call), a profile
+    in which some kernel's events are not a multiple of ``reps`` (an
+    event lost) is taken again too, and each kernel's time is its mean
+    duration over the events seen times its events a call (those seen
+    over ``reps``, rounded, at least 1).  {} if all three saw no
+    kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    us = {}
     for attempt in range(3):
-        if attempt:
-            print(f"[warn] torch.profiler saw no kernel in profile "
-                  f"{attempt} of 3; taking it again")
+        us, n = {}, {}
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                n = e.name.replace("(anonymous namespace)", "")
-                m = re.search(r"(\w+)(<[^(]*>)?\(", n)
-                name = m.group(1) if m else n[:60]
+                s = e.name.replace("(anonymous namespace)", "")
+                m = re.search(r"(\w+)(<[^(]*>)?\(", s)
+                name = m.group(1) if m else s[:60]
                 us[name] = us.get(name, 0.0) + (e.time_range.end
                                                 - e.time_range.start)
-        if us:
+                n[name] = n.get(name, 0) + 1
+        if us and (not exact or all(c % reps == 0 for c in n.values())):
             break
-    return {k: v / reps / 1e3 for k, v in us.items()}
+        print(f"[warn] torch.profiler saw events {json.dumps(n)} over "
+              f"{reps} calls in profile {attempt + 1} of 3"
+              + ("; taking it again" if attempt < 2 else ""))
+    if not exact:
+        return {k: v / reps / 1e3 for k, v in us.items()}
+    return {k: us[k] / n[k] * max(1, round(n[k] / reps)) / 1e3 for k in us}
 
 
-def device_ms(fn):
+def device_ms(fn, exact=False):
     """The sum of :func:`device_times`; None if the profiler saw no
     kernel."""
-    return sum(device_times(fn).values()) or None
+    return sum(device_times(fn, exact=exact).values()) or None
 
 
 def host_ms(fn, reps=50, warmup=3) -> float:
@@ -1173,9 +1221,10 @@ def run_gmis_parity(dev):
 
 def measure_gmis(dev):
     """Phase 12.4: env steps/s of run_drl at the same total envs and
-    iterations for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs on streams, and
-    4 x 4096 sequential; the first iteration is the warm-up, the rate is
-    over the rest."""
+    iterations for 1 x 16384, 2 x 8192 and 4 x 4096 GMIs on streams (each
+    GMI on its share of the SMs) and 4 x 4096 sequential (the whole card
+    in turn); the first iteration is the warm-up, the rate is over the
+    rest."""
     from repro_torch.launch.train import run_drl
     lines = []
     for k, dispatch in GMI_SWEEP:
@@ -1245,6 +1294,131 @@ def gae_under_load(dev, gen):
                      f"{ev[0].elapsed_time(ev[1]):.3f} ms after")
     del b
     return lines
+
+
+# ------------------------------------------------------- carved GMIs ----
+def carved_manager(dev, n):
+    """A MIG-like manager of ``n`` GMIs of one slot each on the card."""
+    from repro_torch.core.gmi import GMIManager
+    mgr = GMIManager(devices=list(range(n)), devices_per_gpu=n,
+                     backend="submesh", device=dev)
+    for gid in range(n):
+        mgr.add_gmi(gid, "serving", 1.0 / n)
+        mgr.set_gpu(gid, 0)
+    return mgr
+
+
+def check_sm_slots(dev):
+    """Phase 24 (a): the partition granularity the card gives (asserted to
+    be ``SM_GRANULARITY``'s), then the SM-id probe (``PROBE_BLOCKS``
+    blocks, each spinning ``PROBE_SPIN`` cycles, writing ``%smid``) on the
+    whole card and inside every GMI of a manager of each of CARVE_SLOTS
+    slots: every SM of the card seen on the whole card; each GMI's ids at
+    most its slot's SMs and disjoint from every other GMI's.  A GMI of a
+    manager of CARVE_REFUSED slots raises (its split cannot be made)."""
+    from repro_torch.core.gmi import SM_GRANULARITY, PartitionError
+    from repro_torch.core import sm_partition as smp
+    from repro_torch.kernels.smid_probe import smid_probe
+    props = torch.cuda.get_device_properties(dev)
+    g = smp.granularity(dev.index)
+    assert g == SM_GRANULARITY[props.major], (g, SM_GRANULARITY)
+    lines = [f"[carve] (a) partition granularity {g} SMs, "
+             f"{props.multi_processor_count} SMs | {card_line()}"]
+    whole = set(smid_probe(PROBE_BLOCKS, PROBE_SPIN, dev).tolist())
+    torch.cuda.synchronize()
+    assert len(whole) == props.multi_processor_count, sorted(whole)
+    for n in CARVE_SLOTS:
+        mgr = carved_manager(dev, n)
+        seen = []
+        for gid in range(n):
+            ctx = mgr.submesh(gid)
+            with ctx.scope():
+                assert smp.current_sms() == ctx.partition.sms
+                ids = smid_probe(PROBE_BLOCKS, PROBE_SPIN, dev)
+            ctx.stream.synchronize()
+            ids = set(ids.tolist())
+            assert ids <= whole and len(ids) <= ctx.partition.sms, (
+                n, gid, sorted(ids))
+            seen.append(ids)
+        for i, a in enumerate(seen):
+            for b in seen[i + 1:]:
+                assert not a & b, (n, sorted(a & b))
+        part = mgr.submesh(0).partition
+        lines.append(
+            f"[carve] (a) {n} slots of {part.slot_sms} SMs ({part.unused} "
+            f"unused): SMs seen a GMI {[len(x) for x in seen]}, disjoint; "
+            "ids " + "; ".join(f"GMI {i} {sorted(x)}"
+                               for i, x in enumerate(seen)))
+    try:
+        carved_manager(dev, CARVE_REFUSED).submesh(0)
+    except PartitionError as e:
+        lines.append(f"[carve] (a) {CARVE_REFUSED} slots refused: {e}")
+    else:
+        raise AssertionError(f"{CARVE_REFUSED} slots were carved")
+    return lines
+
+
+def carve_ratios(dev, gen):
+    """Phase 24 (b): one bf16 ``torch.matmul`` of CARVE_GEMM^3 (cuBLAS)
+    and one ``ops.flash_attention`` at CARVE_FLASH (a hand kernel), timed
+    by CUDA events in GMI 0 of 4 slots and on the whole card: each ratio
+    at least half of the card's SMs over the GMI's; the flash output in
+    the GMI bit for bit the whole card's."""
+    from repro_torch.kernels import ops
+    ctx = carved_manager(dev, 4).submesh(0)
+    a = torch.randn(CARVE_GEMM, CARVE_GEMM, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    fa = flash_inputs(*CARVE_FLASH, gen, dev, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor = 0.5 * sms / ctx.partition.sms
+    res = {}
+    for name, fn in ((f"matmul bf16 {CARVE_GEMM}^3", lambda: a @ a),
+                     (f"flash_attention bf16 (B, S, H, KH, hd) = "
+                      f"{CARVE_FLASH}", lambda: ops.flash_attention(*fa))):
+        whole = time_ms(fn)
+        ctx.stream.wait_stream(torch.cuda.current_stream(dev))
+        with ctx.scope():
+            part = time_ms(fn)
+            out = fn()
+        torch.cuda.current_stream(dev).wait_stream(ctx.stream)
+        ref_out = fn()
+        torch.cuda.synchronize()
+        if name.startswith("flash"):
+            assert torch.equal(out, ref_out)
+        assert part / whole >= floor, (name, part, whole, floor)
+        res[name] = (whole, part, part / whole)
+    return [f"[carve] (b) {name}: whole card {w:.4f} ms, GMI of "
+            f"{ctx.partition.sms} SMs "
+            f"{p:.4f} ms, ratio {r:.3f} (at least {floor:.3f})"
+            for name, (w, p, r) in res.items()]
+
+
+def check_gae_carved(dev, gen):
+    """Phase 24 (c): the cooperative GAE launch inside GMI 0 of 15 slots
+    (8 SMs) at CARVE_GAE_N, against its plain version within its gate; the
+    grid (its scratch) sized by the context's SMs, not the card's."""
+    from repro_torch.kernels import gae_scan, ops, ref
+    ctx = carved_manager(dev, CARVE_SLOTS[-1]).submesh(0)
+    lib = gae_scan._lib()
+    whole = lib.gae_scan_scratch()
+    worst = 0.0
+    for n in CARVE_GAE_N:
+        r, v, d, last = gae_inputs(T_MAIN, n, gen, dev)
+        want = ref.gae_norm_ref(r, v, d, last)
+        ctx.stream.wait_stream(torch.cuda.current_stream(dev))
+        with ctx.scope():
+            inside = lib.gae_scan_scratch()
+            got = ops.gae_norm(r, v, d, last)
+        ctx.stream.synchronize()
+        err = max(max_err(x, y) for x, y in zip(got, want))
+        assert err <= TOL["gae_norm"], (n, err)
+        worst = max(worst, err)
+    assert inside * ctx.partition.card_sms == whole * ctx.partition.sms, (
+        inside, whole)
+    return (f"[carve] (c) gae_norm in a GMI of {ctx.partition.sms} SMs at "
+            f"T={T_MAIN}, N={list(CARVE_GAE_N)}: max_abs_err={worst:.3g} "
+            f"(tol {TOL['gae_norm']:g}); its scratch (2 floats a resident "
+            f"block) {inside} floats there, {whole} on the whole card")
 
 
 # ------------------------------------------------- supervised async A3C ----
@@ -2385,6 +2559,7 @@ def run_disagg(dev):
                 for k in ("migrated", "local")}
     stats = {
         "setup_s": setup_s, "wall_s": wall,
+        "gmi_sms": pf.gmi.partition.sms if pf.gmi.partition else None,
         "payload_mb": [p["bytes"] / 1e6 for p in log],
         "head_pages": heads, "page_bytes": page_bytes,
         "prefix_pages_saved": front.prefix_pages_saved - saved0,
@@ -2496,11 +2671,15 @@ def check_multi_agent_small(dev):
     reset on the first step) on the card against the plain path on the
     CPU, from the same params, env state, noise and permutations: env
     bookkeeping (t, seed, resets) and the episode-done fraction exact,
-    every world's agents done together, params within 1e-5 after an
-    update that moved some param by more than 1e-4."""
+    every world's agents done together; after an update that moved some
+    param by more than 1e-4, each gradient Adam is fed on the card within
+    1e-4 of its leaf's largest on the CPU and the params within 1e-5 plus
+    what Adam makes of those gradient differences (:func:`adam_slack`, as
+    phase 3 holds them; ROADMAP C21)."""
     from repro_torch.envs import make_multi_agent_env
     from repro_torch.kernels import ops
     from repro_torch.models.policy import init_policy
+    from repro_torch.rl import ppo
     from repro_torch.rl.ppo import PPOConfig, train_iteration
     from repro_torch.optim import adam_init
     from repro_torch.utils import tree_leaves, tree_map
@@ -2521,13 +2700,19 @@ def check_multi_agent_small(dev):
     perms = torch.stack([torch.randperm(cfg.num_steps * n, generator=g)
                          for _ in range(cfg.num_epochs)])
     p0 = [t.clone() for t in tree_leaves(p)]
-    out, launches = {}, None
+    out, launches, rec = {}, None, {}
+    update = ppo.adam_update
     for d in ("cpu", dev):
         env = make_multi_agent_env("Ant", K, device=d)
         mv = lambda x: tree_map(lambda t: t.to(d), x)
+        rec[str(d)] = []
+        ppo.adam_update = recording_adam(update, rec[str(d)])
         ops.reset_launches()
-        res = train_iteration(mv(p), mv(o), env, mv(es), ob.to(d), None, cfg,
-                              noise=noise.to(d), perms=perms.to(d))
+        try:
+            res = train_iteration(mv(p), mv(o), env, mv(es), ob.to(d), None,
+                                  cfg, noise=noise.to(d), perms=perms.to(d))
+        finally:
+            ppo.adam_update = update
         launches = dict(ops.LAUNCHES)
         out[str(d)] = tree_map(lambda t: t.cpu(), (res[0], res[2], res[5]))
     (pc, sc, mc), (pg, sg, mg) = out["cpu"], out[str(dev)]
@@ -2538,13 +2723,21 @@ def check_multi_agent_small(dev):
     assert float(mc["episode_done_frac"]) == 1 / (W * cfg.num_steps)
     moved = max(max_err(a, b) for a, b in zip(tree_leaves(pc), p0))
     assert moved > 1e-4, ("no update on the CPU", moved)
+    rc, rg = rec["cpu"], rec[str(dev)]
+    assert len(rc) == len(rg) == cfg.num_epochs * cfg.num_minibatches
+    grad = grad_share(rc, rg)
+    assert grad <= 1e-4, ("gradients card vs CPU", grad)
+    slack = adam_slack(rc, rg, lr=cfg.lr)
     perr = max(max_err(a, b) for a, b in zip(tree_leaves(pc),
                                              tree_leaves(pg)))
-    assert perr <= 1e-5, ("params card vs CPU", perr)
+    over = max(float(((a - b).abs().numpy() - (1e-5 + sl)).max())
+               for a, b, sl in zip(tree_leaves(pc), tree_leaves(pg), slack))
+    assert over <= 0, ("params card vs CPU beyond 1e-5 + Adam's slack",
+                       perr, over)
     want = {k: 0 for k in TOL}
     want.update({"policy_mlp": cfg.num_steps + 1, "gae_norm": 1})
     assert launches == want, (launches, want)
-    return perr, moved, launches
+    return perr, moved, launches, grad, max(float(x.max()) for x in slack)
 
 
 def ppo_rate(env, n, iters=MA_ITERS, count=False):
@@ -3855,14 +4048,16 @@ def flex_library(ft, window, cap):
 def windowed_timings(gen, dev):
     """Phase 13's entries, (the shape, (kernel, plain, library, cost,
     peak)), for flash and for paged decode at phases 22 and 23's shapes,
-    each window and softcap of their layers, and the library's bf16 ulps
-    from the plain version (flash) by shape.  The library call: SDPA with
-    a boolean window mask, or, with a softcap, ``flex_library``; none for
-    paged decode."""
+    each window and softcap of their layers; the library calls named by
+    shape (flash); and (the flash entry's index, its inputs, window, cap)
+    of each library left to the caller to build.  The library call: SDPA
+    with a boolean window mask, or, with a softcap, ``flex_library``
+    (None here: the caller builds it once its profiles are taken); none
+    for paged decode."""
     from repro_torch.kernels import cost, ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bf = torch.bfloat16
-    flash_t, paged_t, lib_ulps = [], [], []
+    flash_t, paged_t, lib_ulps, compiled = [], [], [], []
     for arch in (GARCH, MXARCH):
         H, KH, hd, cases = windowed_cases(arch)
         fq, fk, fv = flash_inputs(*W_FLASH, H, KH, hd, gen, dev, bf)
@@ -3879,8 +4074,8 @@ def windowed_timings(gen, dev):
                                                    enable_gqa=True)
                 lib_ulps.append((at, "SDPA", None))
             else:
-                lib, u = flex_library(ft, w, cap)
-                lib_ulps.append((at, "flex_attention", u))
+                lib = None
+                compiled.append((len(flash_t), ft, w, cap))
             flash_t.append(({"B": W_FLASH[0], "S": W_FLASH[1], "hd": hd,
                              "causal": True, **at}, (
                 lambda fq=fq, fk=fk, fv=fv, kw=kw: ops.flash_attention(
@@ -3894,7 +4089,178 @@ def windowed_timings(gen, dev):
                 lambda pa=pa, kw=kw: ops.paged_attention(*pa, **kw),
                 lambda pa=pa, kw=kw: ref.paged_attention_ref(*pa, **kw),
                 None, cost.paged_attention(*pa, window=w), cost.PEAK_BF16)))
-    return flash_t, paged_t, lib_ulps
+    return flash_t, paged_t, lib_ulps, compiled
+
+
+def time_kernels(dev, gen, paged_main, zpaged, mlstm_main):
+    """Phase 13: each kernel against its plain version and its library
+    call, by CUDA events ("ms", "plain_ms", "library_ms"), by
+    ``torch.profiler`` ("device_ms", "library_device_ms") and on the host
+    ("host_ms"), at its main-path shapes (flash and paged decode at each
+    timed shape, in ``shapes``), with its bound.  Run before any path,
+    green context or other profile of the process, so that the device
+    times are the kernels' own; each row's (and shape's) device time at
+    least its bound, asserted.  The rows lack the launches and errors,
+    which the paths fill in."""
+    from repro_torch.envs import SPECS
+    from repro_torch.kernels import cost, ops, ref
+    spec = SPECS[ENV]
+    trunk_dims = spec.policy_dims[:-1]
+    bf = torch.bfloat16
+    _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
+    r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
+    x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)
+    pay, bufs = pack_inputs(T_MAIN, 2, N_A3C, spec, gen, dev, 3)
+
+    def chain():
+        h = x
+        for w, b in zip(ws, bs):
+            h = torch.tanh(torch.addmm(b, h, w))
+        return h
+
+    def copies():
+        col = N_A3C
+        for c in ("obs", "actions", "rewards", "dones"):
+            bufs[c][:, col:col + N_A3C].copy_(pay[c])
+        bufs["bootstrap"][1].copy_(pay["bootstrap"])
+        bufs["actor_version"][1].fill_(pay["actor_version"])
+
+    rows = []
+    timings = {
+        "env_mega_step": (
+            lambda: ops.env_mega_step(*st, action, obs0, None, 0, 0,
+                                      *consts, **kw),
+            lambda: ref.mega_step(*st, action, obs0, None, 0, 0, *consts,
+                                  **kw),
+            None, cost.env_mega_step(N_MAIN, spec.act_dim, spec.obs_dim,
+                                     spec.substeps)),
+        "gae_norm": (lambda: ops.gae_norm(r, v, d, last),
+                     lambda: ref.gae_norm_ref(r, v, d, last), None,
+                     cost.gae_norm(T_MAIN, N_MAIN)),
+        "policy_mlp": (lambda: ops.policy_mlp(x, ws, bs),
+                       lambda: ref.policy_mlp_ref(x, ws, bs), chain,
+                       cost.policy_mlp(trunk_dims, N_MAIN),
+                       cost.PEAK_3XTF32),
+        "nstep_returns": (lambda: ops.nstep_returns(r, d, last),
+                          lambda: ref.nstep_returns_ref(r, d, last), None,
+                          cost.nstep_returns(T_MAIN, N_MAIN)),
+        "pack_channels": (lambda: ops.pack_channels(bufs, pay, 1),
+                          lambda: ref.pack_channels_ref(bufs, pay, 1),
+                          copies, cost.pack_channels(T_MAIN, N_A3C,
+                                                     spec.obs_dim,
+                                                     spec.act_dim)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # (the shape, its calls) of every timed shape, phase 8's first
+    flash_t = []
+    for fb, fs, fh, fkh, fhd, fc in FLASH_TIMED:
+        fq, fk, fv = flash_inputs(fb, fs, fh, fkh, fhd, gen, dev, bf)
+        ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
+        flash_t.append(({"B": fb, "S": fs, "hd": fhd, "causal": fc}, (
+            lambda fq=fq, fk=fk, fv=fv, fc=fc: ops.flash_attention(
+                fq, fk, fv, causal=fc),
+            lambda fq=fq, fk=fk, fv=fv, fc=fc: ref.attention_ref(
+                fq, fk, fv, causal=fc),
+            lambda ft=ft, fc=fc: sdpa(*ft, is_causal=fc, enable_gqa=True),
+            cost.flash_attention(fb, fs, fh, fkh, fhd, 2, fc),
+            cost.PEAK_BF16)))
+    paged_t = []
+    for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
+        paged_t.append(({"B": pb, "H": pa[0].shape[1],
+                         "hd": pa[0].shape[2]}, (
+            lambda pa=pa: ops.paged_attention(*pa),
+            lambda pa=pa: ref.paged_attention_ref(*pa), None,
+            cost.paged_attention(*pa), cost.PEAK_BF16)))
+    wf, wp, lib_ulps, compiled = windowed_timings(gen, dev)
+    flash_t += wf
+    paged_t += wp
+    (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
+    timings["mlstm_chunkwise"] = (
+        lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
+        lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
+        cost.mlstm_chunkwise(*shape[:4], mc), cost.PEAK_3XTF32)
+    # every timed call: (row, shape or None, its entry); flash and paged
+    # decode at each shape, phase 8's first
+    entries = [(n, None, e) for n, e in timings.items()
+               if n != "mlstm_chunkwise"]
+    entries += [("paged_attention", at, e) for at, e in paged_t]
+    entries += [("flash_attention", at, e) for at, e in flash_t]
+    entries.append(("mlstm_chunkwise", None, timings["mlstm_chunkwise"]))
+
+    # the profiles first, before ``torch.compile`` builds a library call
+    # (the profiles after it lose one kernel event in 20)
+    prof = []
+    for _, _, (kern, _, lib, *_) in entries:
+        by_kernel = device_times(kern, exact=True)
+        prof.append((by_kernel, sum(by_kernel.values()) or None,
+                     device_ms(lib, exact=True) if lib else None))
+    first_w = len(entries) - 1 - len(wf)    # wf's first (mlstm is last)
+    for i, ft, w, cap in compiled:
+        name, at, (k_, p_, _, cb, *pk) = entries[first_w + i]
+        lib, u = flex_library(ft, w, cap)
+        entries[first_w + i] = (name, at, (k_, p_, lib, cb, *pk))
+        lib_ulps.append((at, "flex_attention", u))
+    for at, lib, u in lib_ulps:
+        print(f"[time] flash_attention library at {json.dumps(at)}: {lib}"
+              + (f", {u:.3g} bf16 ulps from the plain version (the ulps "
+                 "of each element, largest)" if u is not None else ""))
+
+    def timed(kern, plain, lib, nbytes, nops, *peak):
+        b_ms, b_by = cost.bound_ms(nbytes, nops, *peak)
+        # plain, kernel, kernel, plain: report the mean of each pair
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
+                          time_ms(plain))
+        return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib) if lib else None,
+                "host_ms": host_ms(kern), "bytes": nbytes,
+                "ops": cost.op_count(nops)}
+
+    rows = {}
+    for (name, at, (kern, plain, lib, (nbytes, nops), *peak)), \
+            (by_kernel, dev_ms, lib_dev) in zip(entries, prof):
+        # a call can be host-bound: the device time of the kernel (and of
+        # the library call's kernels, where there is one) under the
+        # profiler is in the row (in flash's and paged decode's, in its
+        # ``shapes``)
+        sh = {**(at or {}), **timed(kern, plain, lib, nbytes, nops, *peak),
+              "device_ms": dev_ms,
+              "library_device_ms": lib_dev if lib_dev is not None or
+              not lib else device_ms(lib, exact=True)}
+        row = rows.setdefault(name, {
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1]})
+        if at is None:
+            row.update(sh)
+        else:
+            # the row's own numbers are its first shape's
+            if "shapes" not in row:
+                row.update({k: v for k, v in sh.items() if k not in at})
+            row.setdefault("shapes", []).append(sh)
+        if len(by_kernel) > 1:
+            print(f"[time] {name}: device time by launched kernel "
+                  f"{json.dumps(by_kernel)}")
+        where = (f" B={sh['B']} {'S' if 'S' in sh else 'H'}="
+                 f"{sh.get('S', sh.get('H'))} hd={sh['hd']}" if "B" in sh
+                 else "") + (f" {sh['arch']} window={sh['window']} "
+                             f"softcap={sh['softcap']}" if "arch" in sh
+                             else "")
+        print(f"[time] {name}{where}: kernel {sh['ms']:.4f} ms, plain "
+              f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
+              f"({sh['bound_by']}), library {sh['library_ms']} ms, device "
+              f"time (profiler) kernel {sh['device_ms']} ms, library "
+              f"{sh['library_device_ms']} ms, host time of a call on its "
+              f"own {sh['host_ms']:.4f} ms")
+        # a device time below the bound is a profile that lost events
+        assert sh["device_ms"] is not None and \
+            sh["device_ms"] >= sh["bound_ms"], (name, where, sh)
+        if name == "env_mega_step":
+            f32_ms, f32_by = cost.bound_ms(nbytes, cost.op_count(nops))
+            print(f"[time] env_mega_step bound both ways: "
+                  f"{sh['bound_ms']:.4f} ms ({sh['bound_by']}) with the "
+                  f"projection in three TF32 passes on the tensor cores, "
+                  f"{f32_ms:.4f} ms ({f32_by}) on the fp32 pipe alone")
+    return list(rows.values())
 
 
 def main() -> int:
@@ -4106,6 +4472,13 @@ def main() -> int:
           f"max_abs_err={check_pack(5, N_PACK_RAGGED, spec, gen, dev, ver)}"
           ", rings bit-exact, sentinel kept")
 
+    # 13. timings, before any path, green context or compiled library -----
+    t13 = time.perf_counter()
+    kernel_rows = time_kernels(dev, gen, paged_main, zpaged, mlstm_main)
+    del paged_main, zpaged, mlstm_main
+    torch.cuda.empty_cache()
+    print(f"[time] phase 13 took {time.perf_counter() - t13:.1f} s")
+
     # 3. small iteration against the CPU path -----------------------------
     perr, moved, grad, slack = check_small_iteration(dev)
     print(f"[parity] fused PPO iteration card vs CPU: params max_abs_err="
@@ -4221,6 +4594,15 @@ def main() -> int:
           f"profiled decode step idle share "
           f"{stats['decode_profile']['idle_share']:.4f}")
 
+    # 24. carved GMIs (before 12 and 14, which run on them) ---------------
+    t24 = time.perf_counter()
+    for line in check_sm_slots(dev):
+        print(line)
+    for line in carve_ratios(dev, gen):
+        print(line)
+    print(check_gae_carved(dev, gen))
+    print(f"[carve] phase 24 took {time.perf_counter() - t24:.1f} s")
+
     # 12. multi-GMI synchronous PPO on one card ---------------------------
     t12 = time.perf_counter()
     for line in check_layouts(dev):
@@ -4232,8 +4614,11 @@ def main() -> int:
     rates = {k: v["steps_per_s"] for k, v in runs.items()}
     print(f"[gmi] run_drl {ENV} 1 x 4 GMIs x {N_MAIN // 4} envs, T="
           f"{T_MAIN}, {GMI_ITERS} iterations, strategy "
-          f"{runs['streams']['strategy']}: one stream a GMI against the "
-          f"default stream in turn, params max_abs_err={diff:.3g} (tol 1e-6;"
+          f"{runs['streams']['strategy']}: each GMI on its share of the "
+          f"SMs (a green context of "
+          f"{carved_manager(dev, 4).submesh(0).partition.sms} SMs, its "
+          f"stream) against every GMI on the default stream "
+          f"(the whole card) in turn, params max_abs_err={diff:.3g} (tol 1e-6;"
           f" bit-identical: {bit}), launches {la} (both runs), env steps/s "
           f"{rates}")
     for line in measure_gmis(dev):
@@ -4312,14 +4697,13 @@ def main() -> int:
     del runner
     print(f"[fleet] phase 12b took {time.perf_counter() - t12b:.1f} s")
 
-    # 14. disaggregated serving over GMIs (before 13's timings, so its
-    # launches join the kernels line) -------------------------------------
+    # 14. disaggregated serving over GMIs ---------------------------------
     t14 = time.perf_counter()
     small, la = check_disagg_small(dev)
     by_path["disagg_small"] = la
     print(f"[disagg] (a) small f32 front ({ARCH} reduced, 2 decode GMIs x 4 "
-          f"slots + 1 prefill GMI, one stream each, planner pinned at "
-          f"{D_SMALL_THRESHOLD} tokens) card vs CPU: routes "
+          f"slots + 1 prefill GMI, one slot of the SMs each, planner "
+          f"pinned at {D_SMALL_THRESHOLD} tokens) card vs CPU: routes "
           f"{small['routes']}, payload (request, bytes, head pages) "
           f"{small['payloads']}, prefix_pages_saved "
           f"{small['prefix_pages_saved']}, greedy tokens, all equal; "
@@ -4336,9 +4720,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     la, stats, measured = run_disagg(dev)
     by_path["disagg"] = la
+    assert stats["gmi_sms"] == torch.cuda.get_device_properties(
+        dev).multi_processor_count // D_GMIS // 8 * 8, stats["gmi_sms"]
     print(f"[disagg] (b) {ARCH} full width bf16, {D_DECODE} decode GMIs x "
-          f"{D_SLOTS} slots + {D_PREFILL} prefill GMI, one CUDA stream each, "
-          f"shared params, max_seq 1024, 8-token pages; 4 x {D_LONG} tokens "
+          f"{D_SLOTS} slots + {D_PREFILL} prefill GMI, one slot of the SMs "
+          f"each, shared params, max_seq 1024, 8-token pages; 4 x {D_LONG} "
+          f"tokens "
           f"(two share a {D_HEAD}-token head) and 4 x {D_SHORT}, {D_GEN} "
           f"greedy tokens each, planner pinned at {D_THRESHOLD} tokens: "
           f"launches {la}, stats {json.dumps(stats)}")
@@ -4365,12 +4752,14 @@ def main() -> int:
 
     # 15. multi-agent PPO: the trunk and GAE kernels over the plain step --
     t15 = time.perf_counter()
-    perr, moved, la = check_multi_agent_small(dev)
+    perr, moved, la, grad, slack = check_multi_agent_small(dev)
     print(f"[multi_agent] (a) 4-agent Ant, {MA_SMALL_WORLDS} worlds x "
           f"{MA_AGENTS} agents, T={MA_SMALL_T}, fused PPO iteration card vs "
           f"CPU: t/seed/resets and done fraction equal, world 2's agents "
-          f"done together, params max_abs_err={perr:.3g} (tol 1e-5; largest "
-          f"update {moved:.3g}); launches {la}")
+          f"done together, params max_abs_err={perr:.3g} (tol 1e-5 + Adam's "
+          f"slack, largest {slack:.3g}; largest update {moved:.3g}), Adam's "
+          f"gradients within {grad:.3g} of each leaf's largest (tol 1e-4); "
+          f"launches {la}")
     la, rates = run_multi_agent(dev)
     by_path["multi_agent"] = la
     print(f"[multi_agent] (b) 4-agent Ant, {N_MAIN} agents ({N_MAIN // 4} "
@@ -4634,156 +5023,13 @@ def main() -> int:
         print(f"[{key}] phase {tag} took {time.perf_counter() - tw:.1f} s")
     launches = {k: sum(p[k] for p in by_path.values()) for k in TOL}
 
-    # 13. timings -----------------------------------------------------------
-    _, st, action, obs0, consts, kw = env_inputs(ENV, N_MAIN, gen, dev)
-    r, v, d, last = gae_inputs(T_MAIN, N_MAIN, gen, dev)
-    x, ws, bs = trunk_inputs(trunk_dims, N_MAIN, gen, dev)
-    pay, bufs = pack_inputs(T_MAIN, 2, N_A3C, spec, gen, dev, 3)
-
-    def chain():
-        h = x
-        for w, b in zip(ws, bs):
-            h = torch.tanh(torch.addmm(b, h, w))
-        return h
-
-    def copies():
-        col = N_A3C
-        for c in ("obs", "actions", "rewards", "dones"):
-            bufs[c][:, col:col + N_A3C].copy_(pay[c])
-        bufs["bootstrap"][1].copy_(pay["bootstrap"])
-        bufs["actor_version"][1].fill_(pay["actor_version"])
-
-    rows = []
-    timings = {
-        "env_mega_step": (
-            lambda: ops.env_mega_step(*st, action, obs0, None, 0, 0,
-                                      *consts, **kw),
-            lambda: ref.mega_step(*st, action, obs0, None, 0, 0, *consts,
-                                  **kw),
-            None, cost.env_mega_step(N_MAIN, spec.act_dim, spec.obs_dim,
-                                     spec.substeps)),
-        "gae_norm": (lambda: ops.gae_norm(r, v, d, last),
-                     lambda: ref.gae_norm_ref(r, v, d, last), None,
-                     cost.gae_norm(T_MAIN, N_MAIN)),
-        "policy_mlp": (lambda: ops.policy_mlp(x, ws, bs),
-                       lambda: ref.policy_mlp_ref(x, ws, bs), chain,
-                       cost.policy_mlp(trunk_dims, N_MAIN),
-                       cost.PEAK_3XTF32),
-        "nstep_returns": (lambda: ops.nstep_returns(r, d, last),
-                          lambda: ref.nstep_returns_ref(r, d, last), None,
-                          cost.nstep_returns(T_MAIN, N_MAIN)),
-        "pack_channels": (lambda: ops.pack_channels(bufs, pay, 1),
-                          lambda: ref.pack_channels_ref(bufs, pay, 1),
-                          copies, cost.pack_channels(T_MAIN, N_A3C,
-                                                     spec.obs_dim,
-                                                     spec.act_dim)),
-    }
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # (the shape, its calls) of every timed shape, phase 8's first
-    flash_t = []
-    for fb, fs, fh, fkh, fhd, fc in FLASH_TIMED:
-        fq, fk, fv = flash_inputs(fb, fs, fh, fkh, fhd, gen, dev, bf)
-        ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
-        flash_t.append(({"B": fb, "S": fs, "hd": fhd, "causal": fc}, (
-            lambda fq=fq, fk=fk, fv=fv, fc=fc: ops.flash_attention(
-                fq, fk, fv, causal=fc),
-            lambda fq=fq, fk=fk, fv=fv, fc=fc: ref.attention_ref(
-                fq, fk, fv, causal=fc),
-            lambda ft=ft, fc=fc: sdpa(*ft, is_causal=fc, enable_gqa=True),
-            cost.flash_attention(fb, fs, fh, fkh, fhd, 2, fc),
-            cost.PEAK_BF16)))
-    paged_t = []
-    for pb, pa in ((8, paged_main), (4, zpaged[ZARCH])):
-        paged_t.append(({"B": pb, "H": pa[0].shape[1],
-                         "hd": pa[0].shape[2]}, (
-            lambda pa=pa: ops.paged_attention(*pa),
-            lambda pa=pa: ref.paged_attention_ref(*pa), None,
-            cost.paged_attention(*pa), cost.PEAK_BF16)))
-    wf, wp, lib_ulps = windowed_timings(gen, dev)
-    for at, lib, u in lib_ulps:
-        print(f"[time] flash_attention library at {json.dumps(at)}: {lib}"
-              + (f", {u:.3g} bf16 ulps from the plain version (the ulps "
-                 "of each element, largest)" if u is not None else ""))
-    flash_t += wf
-    paged_t += wp
-    timings["paged_attention"] = paged_t[0][1]
-    timings["flash_attention"] = flash_t[0][1]
-    (ma, mc), shape = mlstm_main[0], MLSTM_MAIN[0]
-    timings["mlstm_chunkwise"] = (
-        lambda: ops.mlstm_chunkwise(*ma, chunk=mc),
-        lambda: ref.mlstm_chunkwise_ref(*ma, mc), None,
-        cost.mlstm_chunkwise(*shape[:4], mc), cost.PEAK_3XTF32)
-    def timed(kern, plain, lib, nbytes, nops, *peak):
-        b_ms, b_by = cost.bound_ms(nbytes, nops, *peak)
-        # plain, kernel, kernel, plain: report the mean of each pair
-        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                          time_ms(plain))
-        return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lib) if lib else None,
-                "host_ms": host_ms(kern), "bytes": nbytes,
-                "ops": cost.op_count(nops)}
-
-    for name, (kern, plain, lib, (nbytes, nops), *peak) in timings.items():
-        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
-               "replaces": KERNELS[name][1], "launches": launches[name],
-               "max_abs_err": errs[name]}
-        # a call can be host-bound: the device time of the kernel (and of
-        # the library call's kernels, where there is one) under the
-        # profiler is in the row (in flash's, in its ``shapes``)
-        extra = {}
-        if name == "flash_attention":
-            # every timed shape, each in its own turns; the row's own
-            # numbers are phase 8's dispatch, the first
-            row["shapes"] = []
-            for at, (k_, p_, l_, (nb, no), *pk) in flash_t:
-                row["shapes"].append({**at, **timed(k_, p_, l_, nb, no, *pk),
-                                      "device_ms": device_ms(k_),
-                                      "library_device_ms": device_ms(l_)
-                                      if l_ else None})
-            row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in flash_t[0][0]})
-        elif name == "paged_attention":
-            # phase 8's decode step (the row's own numbers) and phase 17's
-            # at hd 112, each in its own turns
-            row["shapes"] = []
-            for at, (k_, p_, l_, (nb, no), *pk) in paged_t:
-                row["shapes"].append({**at, **timed(k_, p_, l_, nb, no, *pk),
-                                      "device_ms": device_ms(k_),
-                                      "library_device_ms": None})
-            row.update({k: v for k, v in row["shapes"][0].items()
-                        if k not in paged_t[0][0]})
-        else:
-            row.update(timed(kern, plain, lib, nbytes, nops, *peak))
-            by_kernel = device_times(kern)
-            extra = {"device_ms": sum(by_kernel.values()) or None,
-                     "library_device_ms": device_ms(lib) if lib else None}
-            row.update(extra)
-            if len(by_kernel) > 1:
-                print(f"[time] {name}: device time by launched kernel "
-                      f"{json.dumps(by_kernel)}")
-        row["launches_by_path"] = {p: la[name] for p, la in by_path.items()}
-        rows.append(row)
-        for sh in row.get("shapes", [{**row, **extra}]):
-            at = (f" B={sh['B']} {'S' if 'S' in sh else 'H'}="
-                  f"{sh.get('S', sh.get('H'))} hd={sh['hd']}" if "B" in sh
-                  else "") + (f" {sh['arch']} window={sh['window']} "
-                              f"softcap={sh['softcap']}" if "arch" in sh
-                              else "")
-            dv = (f", device time (profiler) kernel {sh['device_ms']} ms, "
-                  f"library {sh['library_device_ms']} ms")
-            print(f"[time] {name}{at}: kernel {sh['ms']:.4f} ms, plain "
-                  f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
-                  f"({sh['bound_by']}), library {sh['library_ms']} ms{dv}, "
-                  f"host time of a call on its own {sh['host_ms']:.4f} ms")
-        if name == "env_mega_step":
-            nb_, no_ = timings[name][3]
-            f32_ms, f32_by = cost.bound_ms(nb_, cost.op_count(no_))
-            print(f"[time] env_mega_step bound both ways: "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) with the "
-                  f"projection in three TF32 passes on the tensor cores, "
-                  f"{f32_ms:.4f} ms ({f32_by}) on the fp32 pipe alone")
-    print(json.dumps({"kernels": rows}))
+    # 13. the kernels line: phase 13's rows, with every path's launches ---
+    for row in kernel_rows:
+        name = row["name"]
+        row.update({"launches": launches[name], "max_abs_err": errs[name],
+                    "launches_by_path": {p: la[name]
+                                         for p, la in by_path.items()}})
+    print(json.dumps({"kernels": kernel_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
 # The paper's primary contribution: GPU spatial multiplexing for DRL.
-# gmi.py        — instance abstraction + manager (paper §3); GMIs of one
-#                 process share the card, one CUDA stream each
+# gmi.py        — instance abstraction + manager (paper §3); each GMI of
+#                 one process runs on its share of the card's SMs (a
+#                 green context and its stream)
+# sm_partition.py — the CUDA driver calls that carve those shares
+#                 (csrc/sm_partition.cu)
 # placement.py  — task-aware GMI mapping templates (§5.1); Algorithm 1
 #                 lives in repro_torch.comm.select and is re-exported here
 # channels.py   — channel-based experience sharing MCC (§4.2), device-

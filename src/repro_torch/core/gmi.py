@@ -6,19 +6,34 @@ Device ids stay logical, as in the reference's launcher: a GMI owns
 ``round(devices_per_gpu * resource_fraction)`` ids of its GPU's pool, and
 the manager checks overcommit, rectangular layouts and uniform device
 counts on those ids.  The manager also holds one ``torch.device``, the
-card every GMI of this process runs on.  The two backends of the
-reference map like this:
+card every GMI of this process runs on.
+
+On the card a logical device is a slot of the card's SMs: the SMs split
+into ``devices_per_gpu`` equal slots of ``w = floor(SMs / devices_per_gpu
+/ g) * g`` SMs, ``g`` the partition granularity of the card's compute
+capability (8 SMs on sm_90, read on the card: 2 slots of 64 SMs on an
+NVIDIA H100 80GB HBM3's 132 at 700 W, 4 of 32, 15 of 8; what the
+rounding leaves is used by no GMI), and a GMI owns the union of its ids'
+slots (:func:`sm_partition`).  Its work runs in a CUDA green context of
+exactly those SMs, on that context's stream (:class:`GMIContext`): hand
+kernels and cuBLAS alike.  A GMI that owns every slot of its pool, or
+any GMI of a pool of one slot, runs on the whole card with a stream of
+its own and no green context.  A slot narrower than ``g``, a split the
+card cannot make (16 slots of 8 SMs on an H100, :func:`green_context`)
+or a context that cannot be made raises: nothing carries on over the
+whole card.  All logical GPUs of the process map onto the manager's one
+card, so GMIs of different logical GPUs that own the same slots share
+those SMs (and their stream).
+
+The two backends of the reference map like this:
 
 * ``axis``    (MPS-like): :meth:`GMIManager.instance_mesh` returns an
   :class:`InstanceGrid`, the (gpu, inst[, dev]) grid of a role with one
-  CUDA stream per GMI on the card.  The LGR schedules of
+  :class:`GMIContext` per GMI on the card.  The LGR schedules of
   ``repro_torch.comm`` reduce grid-stacked tensors over it.
 * ``submesh`` (MIG-like): :meth:`GMIManager.submesh` returns one GMI's own
-  :class:`GMIContext` (device, stream); such GMIs reduce only through the
-  host (``comm.mpr_host``).
-
-``resource_fraction`` is bookkeeping: the streams share the whole card,
-as MPS does without a thread-percentage cap.
+  :class:`GMIContext`; such GMIs reduce only through the host
+  (``comm.mpr_host``).
 
 ``GMIManager`` mirrors Listing 1's ``GMI_DRL.GMI_manager``: registration,
 device attachment, communication groups.
@@ -50,17 +65,154 @@ class GMI:
         return len(self.device_ids)
 
 
+class PartitionError(ValueError):
+    """A share of the card's SMs that cannot be carved: slots narrower
+    than the partition granularity, or a split the card cannot make.
+    Algorithm 2's profiler counts such a layout as not runnable."""
+
+
+# SMs a green context's partition is a multiple of, by compute capability
+# major (CUDA's cuDevSmResourceSplitByCount: at least 8, in multiples of
+# 8, on sm_90)
+SM_GRANULARITY = {9: 8}
+
+
+@dataclass(frozen=True)
+class SMPartition:
+    """A GMI's share of its card's SMs: ``slots`` (indices into its GPU's
+    pool of ``num_slots`` slots of ``slot_sms`` SMs each; empty for the
+    whole card, where ``slot_sms`` may be below ``granularity``) of a card
+    of ``card_sms`` SMs, split at ``granularity``."""
+    slots: Tuple[int, ...]
+    num_slots: int
+    slot_sms: int
+    card_sms: int
+    granularity: int
+
+    @property
+    def whole(self) -> bool:
+        return not self.slots
+
+    @property
+    def sms(self) -> int:
+        return self.card_sms if self.whole else len(self.slots) * \
+            self.slot_sms
+
+    @property
+    def ranges(self) -> Tuple[Tuple[int, int], ...]:
+        """The slots' logical SM ranges [start, stop); the card picks
+        which physical SMs each slot holds."""
+        if self.whole:
+            return ((0, self.card_sms),)
+        return tuple((s * self.slot_sms, (s + 1) * self.slot_sms)
+                     for s in self.slots)
+
+    @property
+    def unused(self) -> int:
+        """SMs of the card that no slot holds (the split's rounding); 0
+        for the whole card."""
+        return 0 if self.whole else \
+            self.card_sms - self.num_slots * self.slot_sms
+
+
+def sm_partition(gmi: GMI, devices_per_gpu: int, card_sms: int,
+                 granularity: int) -> SMPartition:
+    """The SMs GMI ``gmi`` owns on a card of ``card_sms`` SMs: logical
+    device ``d`` of GPU ``gpu_id`` is slot ``d - gpu_id * devices_per_gpu``
+    of ``devices_per_gpu`` slots of ``floor(card_sms / devices_per_gpu /
+    granularity) * granularity`` SMs.  The whole card for a GMI that owns
+    every slot, or a pool of one."""
+    if not gmi.device_ids:
+        raise ValueError(f"GMI {gmi.gmi_id} has no devices attached "
+                         "(set_gpu not called)")
+    slots = tuple(sorted(d - gmi.gpu_id * devices_per_gpu
+                         for d in gmi.device_ids))
+    if any(not 0 <= s < devices_per_gpu for s in slots):
+        raise ValueError(f"GMI {gmi.gmi_id}: devices {gmi.device_ids} are "
+                         f"not all in GPU {gmi.gpu_id}'s pool")
+    width = card_sms // devices_per_gpu // granularity * granularity
+    if len(slots) == devices_per_gpu:
+        return SMPartition((), devices_per_gpu, width, card_sms,
+                           granularity)
+    if width < granularity:
+        raise PartitionError(
+            f"GMI {gmi.gmi_id}: {devices_per_gpu} slots of a card of "
+            f"{card_sms} SMs are narrower than the {granularity}-SM "
+            "partition granularity")
+    return SMPartition(slots, devices_per_gpu, width, card_sms, granularity)
+
+
+@dataclass(frozen=True)
+class GreenContext:
+    """A CUDA green context of one partition: the context and its stream
+    (``core/sm_partition.py``); made once a (card, split, slots) and kept
+    for the process."""
+    ctx: int
+    stream: torch.cuda.ExternalStream
+
+
+_GREEN: Dict[tuple, GreenContext] = {}
+
+
+def green_context(dev: torch.device, part: SMPartition) -> GreenContext:
+    """The green context of ``part`` on card ``dev``, from one split of the
+    card into ``part.num_slots`` groups of ``part.slot_sms`` SMs that keep
+    the SMs a thread-block cluster may span together (in a split that
+    treats each SM on its own, cuBLAS's bf16 GEMMs fail once the process
+    has run them on the whole card, as every process has: ``gmi_probe.py``).
+    Raises where the card cannot make those groups (an H100's GPCs hold 15
+    groups of 8 SMs, so 16 slots raise) or the context cannot be made."""
+    from repro_torch.core import sm_partition as smp
+    key = (dev.index, part.num_slots, part.slot_sms, part.slots)
+    g = _GREEN.get(key)
+    if g is None:
+        widths = smp.split(dev.index, part.num_slots, part.slot_sms)
+        if widths != (part.slot_sms,) * part.num_slots:
+            raise PartitionError(
+                f"{torch.cuda.get_device_name(dev)}: a split into "
+                f"{part.num_slots} x {part.slot_sms} SMs made groups of "
+                f"{list(widths)} SMs")
+        ctx, stream, sms = smp.create(dev.index, part.num_slots,
+                                      part.slot_sms, part.slots)
+        if sms != part.sms:
+            raise RuntimeError(f"green context over slots {part.slots} "
+                               f"holds {sms} SMs, not {part.sms}")
+        g = _GREEN[key] = GreenContext(
+            ctx, torch.cuda.ExternalStream(stream, device=dev))
+    return g
+
+
 class GMIContext(NamedTuple):
     """Where one GMI's work runs: the card and the GMI's own stream (None
-    on the CPU, which has no streams)."""
+    on the CPU, which has no streams), its SMs (``partition``; None on the
+    CPU) and, for a share of the card, the green context that holds it to
+    those SMs (``green``; the stream is the green context's)."""
     device: torch.device
     stream: Optional[torch.cuda.Stream]
+    partition: Optional[SMPartition] = None
+    green: Optional[GreenContext] = None
 
     def scope(self):
-        """A context manager that makes this GMI's stream current."""
+        """A context manager that makes this GMI's green context (if any)
+        and then its stream current, and restores both on exit: launches
+        through the runtime go to the current context, so both are
+        needed."""
         if self.stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        if self.green is None:
+            return torch.cuda.stream(self.stream)
+        return _green_scope(self.green.ctx, self.stream)
+
+
+@contextlib.contextmanager
+def _green_scope(ctx: int, stream):
+    from repro_torch.core import sm_partition as smp
+    smp.push(ctx)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        smp.pop(ctx)
 
 
 @dataclass(frozen=True)
@@ -99,7 +251,7 @@ class GMIManager:
         self.backend = backend
         self.gmis: Dict[int, GMI] = {}
         self.groups: Dict[str, List[int]] = {}
-        self._streams: Dict[int, torch.cuda.Stream] = {}
+        self._contexts: Dict[int, GMIContext] = {}
 
     # -- Listing 1 API ---------------------------------------------------
     def add_gmi(self, gmi_id: int, role: str = "holistic",
@@ -143,18 +295,34 @@ class GMIManager:
         return [[g.gmi_id for g in sel if g.gpu_id == gid] for gid in gpus]
 
     def submesh(self, gmi_id: int) -> GMIContext:
-        """The instance's own (device, stream): one CUDA stream per GMI,
-        made on first use and kept; no stream on the CPU.  On the MIG-like
-        backend a GMI's gradients reach others only through the host."""
+        """The instance's own context on the card: its SMs
+        (:func:`sm_partition`) and a stream that runs on them (a green
+        context's for a share of the card, a stream of its own for the
+        whole card), made on first use and kept; no stream on the CPU.
+        On the MIG-like backend a GMI's gradients reach others only
+        through the host."""
         if gmi_id not in self.gmis:
             raise KeyError(f"GMI {gmi_id} is not registered")
         dev = resolve_device(self.device)
         if dev.type != "cuda":
             return GMIContext(dev, None)
-        s = self._streams.get(gmi_id)
-        if s is None:
-            s = self._streams[gmi_id] = torch.cuda.Stream(dev)
-        return GMIContext(dev, s)
+        c = self._contexts.get(gmi_id)
+        if c is None:
+            props = torch.cuda.get_device_properties(dev)
+            g = SM_GRANULARITY.get(props.major)
+            if g is None:
+                raise RuntimeError(
+                    f"{props.name}: no SM partition granularity known for "
+                    f"compute capability {props.major}.{props.minor}")
+            part = sm_partition(self.gmis[gmi_id], self.devices_per_gpu,
+                                props.multi_processor_count, g)
+            if part.whole:
+                c = GMIContext(dev, torch.cuda.Stream(dev), part)
+            else:
+                green = green_context(dev, part)
+                c = GMIContext(dev, green.stream, part, green)
+            self._contexts[gmi_id] = c
+        return c
 
     def instance_mesh(self, role: str, axes=("gpu", "inst")) -> InstanceGrid:
         """Axis backend: one shared grid (gpu × instance) over all GMIs of a

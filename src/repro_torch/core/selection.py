@@ -15,6 +15,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.gmi import GMIManager, PartitionError
+
 logger = logging.getLogger(__name__)
 
 
@@ -117,14 +119,28 @@ def is_resource_exhausted(err: BaseException) -> bool:
     return any(m in str(err) for m in _RESOURCE_MARKERS)
 
 
+def _instance_context(device, gmi_per_gpu: int):
+    """Where a candidate's instance runs: GMI 0 of ``gmi_per_gpu`` GMIs of
+    one slot each on ``device`` (a green context of its slot's SMs; the
+    whole card at one GMI; no stream on the CPU)."""
+    mgr = GMIManager(devices=list(range(gmi_per_gpu)),
+                     devices_per_gpu=gmi_per_gpu, backend="submesh",
+                     device=device)
+    mgr.add_gmi(0, "holistic", 1.0 / gmi_per_gpu)
+    mgr.set_gpu(0, 0)
+    return mgr.submesh(0)
+
+
 def make_ppo_profiler(iters: int = 3, mem_budget_bytes: float = 32e9,
                       device="cuda"):
     """Times the port's PPO iteration on ``device``: the megakernel env and
     the fused kernels on the card, their plain versions on the CPU.  One
     warm-up iteration, then ``iters`` timed ones inside a synchronised
-    window.  GMIperGPU scales the per-instance resource slice by shrinking
-    num_env headroom (1/GMIperGPU of the device), mirroring MPS percentage
-    caps."""
+    window.  GMIperGPU gives the instance its slice: 1/GMIperGPU of the
+    envs and of the memory budget, and on the card 1/GMIperGPU of its SMs
+    (the instance runs in a GMI of one slot of GMIperGPU,
+    ``core/gmi.py``), as the GMIs of the chosen layout run.  A layout the
+    card cannot carve is not runnable."""
     from repro_torch.envs import make_env
     from repro_torch.rl import ppo
     from repro_torch.utils import resolve_device
@@ -146,17 +162,22 @@ def make_ppo_profiler(iters: int = 3, mem_budget_bytes: float = 32e9,
         if mem > mem_budget_bytes / gmi_per_gpu:
             return ProfilePoint(False, 0.0, mem)
         try:
+            gmi = _instance_context(device, gmi_per_gpu)
+        except PartitionError:
+            return ProfilePoint(False, 0.0, mem)
+        try:
             cfg = ppo.PPOConfig(num_steps=8, num_epochs=1, num_minibatches=1,
                                 use_fused_kernels=True)
-            state = list(ppo.init_train(0, env, spec.policy_dims,
-                                        num_envs=eff_env, device=device))
-            step = ppo.make_train_step(env, cfg)
-            *state, m = step(*state)
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(iters):
+            with gmi.scope():
+                state = list(ppo.init_train(0, env, spec.policy_dims,
+                                            num_envs=eff_env, device=device))
+                step = ppo.make_train_step(env, cfg)
                 *state, m = step(*state)
-            sync()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    *state, m = step(*state)
+                sync()
             dt = (time.perf_counter() - t0) / iters
             top = cfg.num_steps * eff_env / dt
             return ProfilePoint(True, top, mem)

@@ -15,8 +15,9 @@
 // blocks are all resident together, so two grid-wide barriers
 // (cooperative_groups' grid.sync) replace the three launches a global
 // normalisation would otherwise take.  The grid is capped at the blocks
-// the card holds at once; each thread takes columns n, n + grid * 128,
-// ..., so any N works.
+// the current context's SMs hold at once (a GMI's green context holds
+// only its share of the card, ctx_sms.cuh); each thread takes columns n,
+// n + grid * 128, ..., so any N works.
 //   1. each thread runs the reverse scan over T for its column (reads
 //      coalesce along N), writes ret, keeps its column's T advantages in
 //      registers (T <= 16 and one column a thread; otherwise it writes
@@ -39,6 +40,10 @@
 // the plain version's separate tensor ops do, so the two agree bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+
+#include "ctx_sms.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -169,26 +174,26 @@ __global__ void __launch_bounds__(GAE_THREADS) gae_norm_kernel(
   }
 }
 
-// the blocks of gae_norm_kernel<REGS> the current device holds at once
+// The blocks of gae_norm_kernel<REGS> the current context holds at once:
+// blocks an SM times the context's SMs (ctx_sms.cuh), not the device's, so
+// that inside a green context of a GMI's share of the card the grid is
+// what that share holds together.
 template <bool REGS>
 cudaError_t resident_blocks(int& out) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && cached[dev]) {
-    out = cached[dev];
-    return cudaSuccess;
-  }
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gae_norm_kernel<REGS>, GAE_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the same on every context of an sm_90a card
+  static int per_sm = 0;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, gae_norm_kernel<REGS>, GAE_THREADS, 0) != cudaSuccess)
+      per_sm = 0;
+  });
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  int sms = 0;
+  cudaError_t err = current_ctx_sms(sms);
   if (err != cudaSuccess) return err;
   out = per_sm * sms;
-  if (dev < 64) cached[dev] = out;
-  return out > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
 __global__ void __launch_bounds__(THREADS) nstep_scan_kernel(
@@ -207,8 +212,8 @@ __global__ void __launch_bounds__(THREADS) nstep_scan_kernel(
 
 }  // namespace
 
-// The floats of scratch gae_scan_launch needs on the current device: two
-// for each block the card holds at once.
+// The floats of scratch gae_scan_launch needs in the current context: two
+// for each block the context's SMs hold at once.
 extern "C" int gae_scan_scratch() {
   int a = 0, b = 0;
   if (resident_blocks<true>(a) != cudaSuccess ||

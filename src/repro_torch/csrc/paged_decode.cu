@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "attn_common.cuh"
+#include "ctx_sms.cuh"
 
 namespace {
 
@@ -369,6 +370,13 @@ int launch_t(const Args& a, cudaStream_t s) {
 }
 
 }  // namespace
+
+// The SMs of the current context (ctx_sms.cuh), over which the caller
+// spreads a call's splits: a GMI's share inside its green context, the
+// whole card outside.  Returns a cudaError_t.
+extern "C" int paged_decode_sms(int* out) {
+  return (int)current_ctx_sms(*out);
+}
 
 // q (B, H, hd); k/v pages (N, P, KH, hd); slot_pos (N, P) int32; table
 // (B, M) int32; positions (B,) int32; out (B, H, hd).  dtype 0 = f32,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``repro_torch/csrc/*.cu`` file has a plain C interface and compiles
-with ``nvcc`` into its own shared library, loaded with ``ctypes``.  All
+with ``nvcc`` into its own shared library, linked with the CUDA driver API
+(``-lcuda``) and loaded with ``ctypes``.  All
 sources compile at once, one ``nvcc`` process each, at the first CUDA use.
 Libraries go to ``build/repro_torch_kernels/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and flags, so a changed source
@@ -26,6 +27,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# linked after each source: the CUDA driver API (green contexts, a
+# context's SMs)
+NVCC_LIBS = ["-lcuda"]
 
 _libs: dict = {}
 
@@ -46,7 +50,7 @@ def _sources():
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -69,7 +73,8 @@ def build_all() -> float:
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
         log = open(out_dir / f"{src.stem}.log", "w")
         procs.append((src, tmp, log, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src),
+             *NVCC_LIBS],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for src, tmp, log, proc in procs:

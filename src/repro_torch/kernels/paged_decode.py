@@ -33,7 +33,20 @@ def _lib():
     lib.paged_decode_launch.argtypes = [_P] * 10 + [_I] * 8 + \
         [_F, _F, _I, _P]
     lib.paged_decode_launch.restype = _I
+    lib.paged_decode_sms.argtypes = [ctypes.POINTER(_I)]
+    lib.paged_decode_sms.restype = _I
     return lib
+
+
+def _sms() -> int:
+    """The SMs of the current context: a GMI's share inside its green
+    context (``core/gmi.py``), the whole card outside."""
+    out = _I()
+    err = _lib().paged_decode_sms(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"paged_attention: the current context's SMs: "
+                           f"CUDA error {err}")
+    return out.value
 
 
 def num_splits(B: int, KH: int, P: int, M: int, sms: int) -> int:
@@ -83,8 +96,7 @@ def launch(q, k_pages, v_pages, slot_pos, table, positions, *, window=None,
     # repro: allow(host-sync-in-hot-path)
     softcap = 0.0 if softcap is None else float(softcap)
     dev = q.device
-    nsplit = num_splits(B, KH, P, M, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    nsplit = num_splits(B, KH, P, M, _sms())
     out = torch.empty_like(q)
     # partials of each split: acc, then (m, l)
     part = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,

@@ -5,9 +5,15 @@
 then one iteration under ``torch.profiler`` with CUDA activity.  With
 ``--gmi-per-gpu K`` it runs the multi-GMI launcher's loop instead
 (``launch.steps.train_gmis`` over a 1 x K TCG_EX grid, ``--num-env`` envs
-in total, each GMI on its own CUDA stream, ``--dispatch``): it sets the
+in total, each GMI in its context (its share of the SMs, its stream),
+``--dispatch``): it sets the
 GMIs up once, runs the warm-up iterations on that state and profiles one
-further iteration.
+further iteration.  It then holds the profile against what the process
+counted and timed: each port kernel's events against its launch counter
+(``kernels/ops.LAUNCHES``), and the span from the first kernel's start to
+the last one's end against the CUDA-event span of the same iteration
+(events on the default stream, which every GMI's stream waits for and
+joins).
 ``--workload serve`` builds a paged ``ServeEngine`` over
 ``--arch`` at full width (random weights drawn straight into the compute
 type), submits ``--batch`` prompts of
@@ -165,6 +171,35 @@ def report(title, wall_us, prof):
             "ms_by_group": {g: us / 1e3 for g, us in by_group.items()}}
 
 
+# the port kernels of a PPO iteration: each launch counter
+# (``kernels/ops.LAUNCHES``) and the kernel one launch of it runs
+PPO_KERNELS = {"env_mega_step": "env_mega_step_kernel",
+               "policy_mlp": "fused_policy_mlp_kernel",
+               "gae_norm": "gae_norm_kernel"}
+
+
+def check_profile(title, prof, launches, events_ms):
+    """A profile against the process: each port kernel's events against
+    its ``launches``, and the kernels' span against ``events_ms``, the
+    CUDA-event span of the same work."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in RANGES]
+    seen = {k: sum(name in e.name for e in kernels)
+            for k, name in PPO_KERNELS.items()}
+    want = {k: launches.get(k, 0) for k in PPO_KERNELS}
+    span_ms = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) / 1e3 \
+        if kernels else 0.0
+    print(f"{title}: port-kernel events {seen}, launches {want} "
+          f"({'every launch seen' if seen == want else 'events lost'}); "
+          f"first kernel's start to last kernel's end {span_ms:.3f} ms, "
+          f"CUDA events {events_ms:.3f} ms (ratio "
+          f"{span_ms / events_ms:.4f})")
+    return {"events": seen, "launches": want, "span_ms": span_ms,
+            "events_ms": events_ms}
+
+
 def _serve(args):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -232,6 +267,7 @@ def _lm(args):
 def _gmis(args):
     from repro_torch.core.placement import plan_tcg_ex_training
     from repro_torch.envs import make_env
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import (init_gmis, make_drl_train_step,
                                           train_gmis)
     from repro_torch.rl.ppo import PPOConfig
@@ -253,9 +289,25 @@ def _gmis(args):
         train_gmis(grid, env, step, cfg.num_steps, args.num_env, iters,
                    dispatch=args.dispatch, states=states)
     run(args.warmup)
-    report(f"{args.env} {k} GMIs x {args.num_env // k} envs T="
-           f"{args.rollout} dispatch={args.dispatch}: iteration",
-           *profile_once(lambda: run(1)))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def one():
+        ops.reset_launches()
+        ev[0].record()
+        run(1)
+        ev[1].record()
+    ctx = grid.contexts[0]
+    where = (f"each GMI in a green context of {ctx.partition.sms} SMs"
+             if args.dispatch == "streams" and ctx.green is not None
+             else "on the whole card")
+    title = (f"{args.env} {k} GMIs x {args.num_env // k} envs T="
+             f"{args.rollout} dispatch={args.dispatch} ({where}): "
+             f"iteration")
+    wall_us, prof = profile_once(one)
+    torch.cuda.synchronize()
+    report(title, wall_us, prof)
+    check_profile(title, prof, dict(ops.LAUNCHES),
+                  ev[0].elapsed_time(ev[1]))
 
 
 def main(argv=None):

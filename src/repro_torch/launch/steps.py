@@ -347,9 +347,9 @@ def make_serve_step(cfg: ModelConfig, mesh=None,
                         tok_sds["pos"])
 
 
-# how the host issues the GMIs' iterations: one thread in turn on their
-# own streams, or one thread in turn on the default stream (the
-# reference's loop)
+# how the host issues the GMIs' iterations: one thread in turn, each GMI
+# in its own context (its share of the SMs, its stream), or one thread in
+# turn on the default stream over the whole card (the reference's loop)
 DISPATCH_MODES = ("streams", "sequential")
 
 
@@ -401,17 +401,18 @@ def init_gmis(grid, env, num_env: int, seed: int = 0, *,
               on_streams: bool = True):
     """Each GMI's PPO state for :func:`train_gmis`: GMI ``i`` (row-major
     over the instance grid) holds ``[params, opt_state, env_state, obs]``
-    from ``init_train(seed + i)`` on ``num_env // n`` envs, drawn under its
-    own stream on the card unless ``on_streams`` is false."""
+    from ``init_train(seed + i)`` on ``num_env // n`` envs, drawn in its
+    own context on the card unless ``on_streams`` is false."""
     from repro_torch.rl.ppo import init_train
     ctxs = list(grid.contexts)
     n = len(ctxs)
     states = []
     for i, c in enumerate(ctxs):
+        if on_streams and c.stream is not None:
+            # the env's constants; the wait is recorded before the GMI's
+            # context is entered, on the stream that made them
+            c.stream.wait_stream(torch.cuda.current_stream(grid.device))
         with _scope(c, on_streams):
-            if on_streams and c.stream is not None:
-                # the env's constants
-                c.stream.wait_stream(torch.cuda.current_stream(grid.device))
             states.append(list(init_train(seed + i, env,
                                           env.spec.policy_dims,
                                           num_envs=num_env // n,
@@ -436,7 +437,9 @@ def train_gmis(grid, env, step, num_steps: int, num_env: int, iters: int,
     they start from ``init_gmis(grid, env, num_env, seed)``.
 
     ``dispatch`` (one of :data:`DISPATCH_MODES`) says how the host issues
-    the GMIs' iterations, one after another.  On the card each GMI's
+    the GMIs' iterations, one after another.  On the card each GMI runs
+    in its context (its share of the SMs, its stream; ``streams``) or on
+    the default stream over the whole card (``sequential``).  Each GMI's
     stream first waits for the default stream (the averaged params), and
     the default stream waits for every GMI's stream before it averages;
     tensors read across streams are marked with ``record_stream``.  Every
@@ -465,9 +468,9 @@ def train_gmis(grid, env, step, num_steps: int, num_env: int, iters: int,
         states = init_gmis(grid, env, num_env, seed, on_streams=on_streams)
 
     def run(i):
+        if streams[i] is not None:
+            streams[i].wait_stream(main)          # the averaged params
         with _scope(ctxs[i], on_streams):
-            if streams[i] is not None:
-                streams[i].wait_stream(main)      # the averaged params
             out = step(*states[i])
             states[i][:] = out[:5]
             return out[5]
@@ -620,8 +623,10 @@ def make_disagg_front(cfg, params, *, decode_engines: int = 2,
     (``core/gmi.py::GMIManager``), each engine the factories build is a
     GMI of its own (role ``"serving"`` for decode, ``"prefill"`` for the
     specialists, on GPU 0, one logical device of its pool each) and runs
-    under that GMI's stream (``manager.submesh``: a CUDA stream on the
-    card); without one every engine runs on the current stream."""
+    in that GMI's context (``manager.submesh``: one slot of the card's SMs
+    and a stream on them; the contexts are kept by slot, so GMIs that
+    replace dead ones reuse them); without one every engine runs on the
+    current stream."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import (DisaggFront, MigrationPlanner,
                                    PrefillEngine, RequestRouter,

@@ -2,8 +2,9 @@
 of its own (runnable counterpart of ``examples/submesh_serving.py``).
 
 Each GMI is registered with a ``GMIManager`` on the MIG-like ``submesh``
-backend and gets its own context: the manager's card and a CUDA stream of
-its own, so its work is ordered apart from every other instance's.  Part 1
+backend and gets its own context: its share of the manager's card's SMs
+(a green context; half the card each here) and a stream on them, so its
+work runs apart from every other instance's.  Part 1
 runs two heterogeneous ``ServingRole`` instances (paper Listing 1's
 serving GMI) side by side; part 2 puts a ``RequestRouter`` front over two
 same-model GMIs and routes an open-loop request trace by queue depth,

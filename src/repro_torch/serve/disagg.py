@@ -152,9 +152,10 @@ class PrefillEngine:
         return self.gmi.stream if self.gmi is not None else None
 
     def scope(self):
-        """A context manager that makes the GMI's stream current."""
-        s = self.stream
-        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+        """A context manager that enters the GMI's context: its green
+        context and stream on the card (``GMIContext.scope``)."""
+        return contextlib.nullcontext() if self.gmi is None \
+            else self.gmi.scope()
 
     @property
     def load(self) -> int:

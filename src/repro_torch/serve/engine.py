@@ -53,9 +53,10 @@ What changes in the port:
   seed, position, vocab index) (``_pick_tokens``), so a draw still depends
   only on the request's seed and position, never on batch composition.
 * ``mesh`` becomes an explicit ``device`` and an optional ``gmi`` (a
-  ``core/gmi.py::GMIContext``): the engine's device work runs under the
-  GMI's own CUDA stream, and its one token readback a step synchronises
-  that stream only.  Without ``gmi`` it runs on the current stream.
+  ``core/gmi.py::GMIContext``): the engine's device work runs in the
+  GMI's context (its share of the card's SMs, on its stream), and its one
+  token readback a step synchronises that stream only.  Without ``gmi``
+  it runs on the current stream.
 * A migrated cache (``submit_prefilled``, the decode half of
   ``serve/disagg.py``) is spliced on the engine's stream after that
   stream has waited for the payload's pack (``core/channels.py::
@@ -250,7 +251,8 @@ class ServeEngine:
     ``share_prefix`` (off for patterned and MoE stacks, as in the
     reference).
     ``gmi`` is an optional ``GMIContext``: its device overrides
-    ``device``, and the engine's work runs under its stream.
+    ``device``, and the engine's work runs in its scope (its SMs, its
+    stream).
     ``prefill_dispatches`` counts whole-prompt prefill dispatches (each
     runs the flash kernel once an attention layer, or the mLSTM kernel
     once an mLSTM block).
@@ -357,9 +359,10 @@ class ServeEngine:
         return self.gmi.stream if self.gmi is not None else None
 
     def scope(self):
-        """A context manager that makes the GMI's stream current."""
-        s = self.stream
-        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+        """A context manager that enters the GMI's context: its green
+        context and stream on the card (``GMIContext.scope``)."""
+        return contextlib.nullcontext() if self.gmi is None \
+            else self.gmi.scope()
 
     def _prefill(self, tokens: np.ndarray, extras=None):
         batch = {"tokens": torch.as_tensor(tokens, device=self.device)}

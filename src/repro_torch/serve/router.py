@@ -2,12 +2,13 @@
 inference workloads); port of ``repro/serve/router.py``.
 
 Each serving GMI runs its own :class:`~repro_torch.serve.engine.ServeEngine`
-(under the GMI's own CUDA stream, ``GMIManager.submesh``'s context, when
-one is attached); the :class:`RequestRouter` is the admission/queueing
-layer in front: requests route to the least-loaded engine by queue depth,
-and per-GMI p50/p95 latency and tok/s accumulate in each engine's
-telemetry.  The control plane is single-arbiter: epoch snapshots
-(``take_epoch``) feed the ONE ``OnlineGMIController`` instance — normally
+(in the GMI's own context, ``GMIManager.submesh``'s: its share of the
+card's SMs and a stream on them, when one is attached); the
+:class:`RequestRouter` is the admission/queueing layer in front:
+requests route to the least-loaded engine by queue depth, and per-GMI
+p50/p95 latency and tok/s accumulate in each engine's telemetry.  The
+control plane is single-arbiter: epoch snapshots (``take_epoch``) feed
+the ONE ``OnlineGMIController`` instance — normally
 driven from the overlapped ``AsyncRunner`` round loop — and its decisions
 come back through :meth:`RequestRouter.apply_decision`, a thin apply hook
 guarded against stale (pre-re-plan) and double-applied decisions.
@@ -20,7 +21,8 @@ the decode side and adds prefill specialists under the same arbiter.
 Listing 1): ``gmi_run(requests)`` executes the engine's request loop
 inside the instance's resource slice — the GMI programming model's
 serving instance.  On the port's MIG-like ``submesh`` backend that slice
-is the GMI's own CUDA stream on the manager's card.
+is the GMI's share of the manager's card: a green context of its SMs and
+that context's stream.
 """
 from __future__ import annotations
 
@@ -367,7 +369,8 @@ class ServingRole(DRLRole):
 
     Registers the GMI with the manager, carves its resource slice, and —
     under the ``submesh`` backend — builds the engine on the instance's
-    own context (the manager's card and the GMI's CUDA stream), so its
+    own context (its share of the manager's card's SMs and a stream on
+    them), so its
     work is ordered apart from every other instance's.  Otherwise the
     engine runs on the manager's card, on the current stream."""
 

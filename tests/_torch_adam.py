@@ -1,5 +1,6 @@
-"""Both packages' PPO Adam updates, recorded for the parity tests of a
-whole PPO iteration (``test_torch_ppo.py``, ``test_torch_gmi.py``).
+"""Both packages' Adam updates, recorded for the parity tests of a whole
+PPO iteration (``test_torch_ppo.py``, ``test_torch_gmi.py``) and of an
+A3C trainer update (``test_torch_a3c.py``).
 
 Adam divides by ``sqrt(vhat) + eps``: where a gradient element is a few
 eps, it turns the float noise of that gradient (~1e-9) into ~1e-6 of the
@@ -31,12 +32,13 @@ adam_slack = cs.adam_slack
 grad_share = cs.grad_share
 
 
-def record_adam(monkeypatch, rec):
-    """Wrap both packages' ``adam_update`` so that every update appends,
-    leaf by leaf, the raw gradients it was given and the moments (m, v)
-    and step it leaves: ``rec["j"]`` the reference's, ``rec["t"]`` the
-    port's, in the same order (GMI, epoch, minibatch)."""
-    jadam = jppo.adam_update
+def record_adam(monkeypatch, rec, jmod=jppo, tmod=tppo):
+    """Wrap both packages' ``adam_update``, as the modules ``jmod`` (the
+    reference's) and ``tmod`` (the port's) call it, so that every update
+    appends, leaf by leaf, the raw gradients it was given and the moments
+    (m, v) and step it leaves: ``rec["j"]`` the reference's, ``rec["t"]``
+    the port's, in the same order (GMI, epoch, minibatch)."""
+    jadam = jmod.adam_update
 
     def keep(g, m, v, step):
         rec["j"].append((g, m, v, int(step)))
@@ -47,6 +49,6 @@ def record_adam(monkeypatch, rec):
                            jax.tree.leaves(s2.mu), jax.tree.leaves(s2.nu),
                            s2.step, ordered=True)
         return p2, s2
-    monkeypatch.setattr(jppo, "adam_update", jwrap)
-    monkeypatch.setattr(tppo, "adam_update",
-                        cs.recording_adam(tppo.adam_update, rec["t"]))
+    monkeypatch.setattr(jmod, "adam_update", jwrap)
+    monkeypatch.setattr(tmod, "adam_update",
+                        cs.recording_adam(tmod.adam_update, rec["t"]))

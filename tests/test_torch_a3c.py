@@ -11,6 +11,7 @@ each actor's action noise is replayed from its JAX key (per step
 import os
 import subprocess
 import sys
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro.envs import make_env as jax_make_env
+from repro.envs import suite as jsuite
 from repro.kernels import ops as jops
 from repro.models.policy import init_policy as jax_init_policy
 from repro.optim import adam_init as jax_adam_init
@@ -26,6 +28,10 @@ from repro.rl import a3c as ja3c
 from repro_torch import interop, utils
 from repro_torch.kernels import ops, ref
 from repro_torch.rl import a3c as ta3c
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_adam import (B1, B2, EPS, GRAD_RTOL, LR,  # noqa: E402
+                         adam_slack, grad_share, record_adam)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 RNG = np.random.default_rng(11)
@@ -93,12 +99,46 @@ def _experience(T, N):
     return params, exp
 
 
+# sensor-matrix seeds of the experience (the reference's
+# ``abs(hash("Ant")) % 2**31``, which changes from process to process,
+# ROADMAP C5): CRC-32 of the name, then the three of draws 0-2219 at
+# which the params after the update lay furthest from the reference's
+# (631: 5.04e-06; 1086: 4.17e-06; 814: 3.34e-06), each gradient within
+# 4.4e-7 of its leaf's largest (ROADMAP C20)
+A3C_DRAWS = [zlib.crc32(b"Ant"), 631, 1086, 814]
+
+
+@pytest.fixture(scope="module")
+def draw_experiences():
+    """(params, experience) of ``_experience(6, 8)`` at each of A3C_DRAWS,
+    made once for both cases of the test below."""
+    with pytest.MonkeyPatch.context() as mp:
+        out = []
+        for draw in A3C_DRAWS:
+            mp.setattr(jsuite, "hash", lambda s, d=draw: d, raising=False)
+            out.append(_experience(6, 8))
+    return out
+
+
 @pytest.mark.parametrize("fused", [False, True])
-def test_a3c_loss_and_trainer_update_match_reference(fused):
-    """Loss and its three parts to 1e-5; params and Adam moments after one
-    update (Adam beta2 0.999, global-norm clip 1.0) to atol 1e-6."""
-    T, N = 6, 8
-    params, exp = _experience(T, N)
+def test_a3c_loss_and_trainer_update_match_reference(monkeypatch, fused,
+                                                     draw_experiences):
+    """At each of A3C_DRAWS: the loss and its three parts to 1e-5; after
+    one update (Adam beta2 0.999, global-norm clip 1.0) the gradient Adam
+    was fed within GRAD_RTOL of its leaf's largest, the params within
+    1e-6 plus what Adam makes of the gradient differences
+    (``adam_slack``: a gradient element of a few eps takes a step of up
+    to the learning rate whichever way its float noise tips it, ROADMAP
+    C10, C20) and the second moments to rtol 1e-4."""
+    rec = {"j": [], "t": []}
+    record_adam(monkeypatch, rec, ja3c, ta3c)
+    for params, exp in draw_experiences:
+        rec["j"].clear()
+        rec["t"].clear()
+        _update_matches_reference(params, exp, fused, rec)
+
+
+def _update_matches_reference(params, exp, fused, rec):
     assert float(exp.dones.sum()) >= 2
     texp = interop.experience(_np(exp))
     tparams = interop.policy_params(_np(params))
@@ -118,8 +158,13 @@ def test_a3c_loss_and_trainer_update_match_reference(fused):
     moved = max(float((g - w).abs().max()) for g, w in zip(
         utils.tree_leaves(tp), utils.tree_leaves(tparams)))
     assert moved > 1e-4
-    for g, w in zip(utils.tree_leaves(tp), jax.tree.leaves(_np(jp))):
-        np.testing.assert_allclose(g.numpy(), w, atol=1e-6)
+    jax.effects_barrier()
+    assert len(rec["j"]) == len(rec["t"]) == 1
+    assert grad_share(rec["j"], rec["t"]) <= GRAD_RTOL
+    slack = adam_slack(rec["j"], rec["t"], 1, LR, B1, B2, EPS)
+    for g, w, x in zip(utils.tree_leaves(tp), jax.tree.leaves(_np(jp)),
+                       slack):
+        assert (np.abs(g.numpy() - w) - (1e-6 + x)).max() <= 0
     for g, w in zip(utils.tree_leaves(to.nu), jax.tree.leaves(_np(jo.nu))):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-10)
     assert int(ta3c.staleness(5, texp)) == 3
