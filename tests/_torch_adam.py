@@ -28,8 +28,29 @@ LR, B1, B2, EPS = 3e-4, 0.9, 0.999, 1e-8
 # it, at most 4.05e-05 over 248 sensor draws of the multi-GMI run
 # (``test_torch_gmi.py --sweep``, ROADMAP C10)
 GRAD_RTOL = 1e-4
+# a gradient the port computed, against the reference's at the same
+# params and experience, as a share of its leaf's largest over a run of
+# updates (``run_grad_share``): float noise of at most 8.92e-07 over the
+# async runner's sensor draws 0-139 and the CRC-32 of "Ant" (ROADMAP C22)
+RUN_GRAD_RTOL = 1e-5
 adam_slack = cs.adam_slack
 grad_share = cs.grad_share
+
+
+def run_grad_share(a, b) -> float:
+    """The largest gradient difference of two Adam records, ``a`` the
+    reference's, as a share of its leaf's largest gradient in ``a`` over
+    the whole run.  Where a leaf's gradient cancels to a hundredth of its
+    usual size at one update (the async runner's value bias, 5.5e-4 at
+    sensor draw 124, ROADMAP C22), its float noise stays that of the terms
+    it sums (5.7e-8), and ``grad_share`` would read it against the small
+    sum (1.03e-4; 2.27e-4 at draw 35)."""
+    import numpy as np
+    scale = [max(float(np.abs(x).max()) for x in leaf)
+             for leaf in zip(*(g for g, *_ in a))]
+    return max(float(np.abs(y - x).max()) / max(s, 1e-30)
+               for (ga, *_), (gb, *_) in zip(a, b)
+               for x, y, s in zip(ga, gb, scale))
 
 
 def record_adam(monkeypatch, rec, jmod=jppo, tmod=tppo):
